@@ -1,0 +1,39 @@
+"""Command line of the port, with the flags of the repository's ``eval.py``:
+
+    python -m evreal_tpu_torch -m E2VID -c std -d ECD -qm mse ssim [--device cpu]
+
+It writes the same output tree (``outputs/<config>/<dataset>/<sequence>/
+<method>/``) and runs on the CUDA card unless ``--device`` names another
+device.
+"""
+
+import argparse
+
+
+def main(argv=None):
+    from evreal_tpu_torch.harness.runner import evaluate
+    from evreal_tpu_torch.harness.timers import TimingLog
+
+    parser = argparse.ArgumentParser(
+        description="event2im evaluation script (PyTorch/CUDA port)")
+    parser.add_argument("-c", "--config", nargs="+", type=str,
+                        help="evaluation configs")
+    parser.add_argument("-m", "--method", nargs="+", type=str, required=True,
+                        help="methods")
+    parser.add_argument("-d", "--dataset", nargs="+", type=str,
+                        help="datasets")
+    parser.add_argument("-qm", "--metrics", nargs="+", type=str,
+                        help="quantitative evaluation metrics that will be "
+                             "used calculate scores")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda; 'cpu' runs the "
+                             "plain CPU path)")
+    args = parser.parse_args(argv)
+    timings = TimingLog()
+    results = evaluate(args.method, args.config, args.dataset, args.metrics,
+                       device=args.device, timings=timings)
+    if timings.samples:
+        print("== Timing statistics ==")
+        for line in timings.summary():
+            print(line)
+    return results

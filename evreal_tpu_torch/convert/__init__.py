@@ -1,0 +1,6 @@
+from evreal_tpu_torch.convert.params import (
+    from_jax_tree,
+    load_params,
+    nest,
+    save_params,
+)

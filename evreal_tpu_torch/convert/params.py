@@ -1,0 +1,104 @@
+"""Weight bridge between converted checkpoints and the port's modules.
+
+Converted checkpoints (``.npz`` of flat torch-style keys plus a
+``.npz.json`` sidecar with ``{"model_name", "class", "kwargs"}``) hold
+arrays in the JAX package's layout (``evreal_tpu/convert/torch_ckpt.py``):
+conv weights HWIO, transposed-conv weights HWIO with the spatial flip
+applied, everything else (biases, norm statistics) as in torch. The
+linear (I, O) layout of the not-yet-ported attention models is not
+handled here.
+
+``from_jax_tree`` undoes that into a ``state_dict`` for the port's
+modules, whose parameter paths are the same torch module paths the trees
+already use. The file I/O here is the port's own numpy-only copy of the
+JAX package's ``save_params`` / ``load_params`` / ``nest``, so both
+packages read the same files.
+"""
+
+import json
+import os
+
+import numpy as np
+import torch
+
+
+def flatten(tree, prefix=""):
+    """Nested {'a': {'b': x}} -> flat {'a.b': x}."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten(v, key + "."))
+        else:
+            out[key] = v
+    return out
+
+
+def nest(flat):
+    """Flat {'a.b.c': x} -> nested {'a': {'b': {'c': x}}}."""
+    tree = {}
+    for key, val in flat.items():
+        node = tree
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return tree
+
+
+def to_torch_layout(key, a):
+    """One converted array (JAX layout) -> the torch module's layout."""
+    a = np.asarray(a)
+    if a.ndim == 4 and key.endswith("weight"):
+        if "transposed_conv2d" in key:
+            # HWIO with spatial flip -> ConvTranspose2d (I, O, kh, kw)
+            return a[::-1, ::-1].transpose(2, 3, 0, 1)
+        return a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    return a
+
+
+def from_jax_tree(tree):
+    """JAX-layout param tree (nested dicts of numpy arrays, or a flat dict)
+    -> ``state_dict`` of contiguous float tensors for the port's modules."""
+    flat = flatten(tree) if any(isinstance(v, dict) for v in tree.values()) \
+        else tree
+    return {k: torch.from_numpy(np.ascontiguousarray(to_torch_layout(k, v)))
+            for k, v in flat.items()}
+
+
+def _sidecar_path(path):
+    """'<file>.npz.json' beside the array file, for base or '.npz' paths."""
+    s = str(path)
+    if not s.endswith(".npz"):
+        s += ".npz"
+    return s + ".json"
+
+
+def save_params(path, flat, meta):
+    """Write ``flat`` (JAX-layout arrays under torch-style keys) and its
+    sidecar; each file goes to a temporary name first and is renamed into
+    place, so a reader never finds a truncated file."""
+    s = str(path)
+    if not s.endswith(".npz"):
+        s += ".npz"
+    tmp = s + ".tmp.npz"  # np.savez appends .npz unless present
+    np.savez(tmp, **flat)
+    os.replace(tmp, s)
+    side_tmp = _sidecar_path(s) + ".tmp"
+    with open(side_tmp, "w", encoding="utf-8") as f:
+        json.dump(meta, f, indent=1)
+    os.replace(side_tmp, _sidecar_path(s))
+
+
+def load_params(path):
+    """Converted ``.npz`` -> (nested tree of numpy arrays, meta dict)."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    try:
+        with open(_sidecar_path(path), encoding="utf-8") as f:
+            meta = json.load(f)
+    except FileNotFoundError:
+        raise FileNotFoundError(
+            f"missing meta sidecar {_sidecar_path(path)} for {path}: the "
+            f"model class and kwargs cannot be recovered") from None
+    return nest(flat), meta

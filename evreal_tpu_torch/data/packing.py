@@ -1,0 +1,224 @@
+"""Pack variable-length event windows into fixed-capacity ``(T, E)`` buffers.
+
+The port's own copy of the numpy path of ``evreal_tpu/data/packing.py``
+(the native C++ packer is not carried over; the JAX package's numpy
+fallback, which this is, produces bit-identical buffers).
+
+Windows have wildly varying event counts, so the events of a chunk of T
+windows are packed into ``(T, E)`` arrays with a per-window ``count``;
+capacities are bucketed to powers of two. Three wire formats
+(``wire_dtypes``):
+
+* ``f32`` — int16 coordinates (float32 for fractional on-disk coordinates),
+  float32 zero-based timestamps, int8 ±1 polarity;
+* ``compact`` — uint16 window-normalized timestamp fractions
+  ``q = rint((ts - ts0) / dt * 65535)`` and uint8 coordinates when the
+  sensor fits (out-of-range values park at the 255 sentinel);
+* ``compact4`` — one uint32 per event: linear pixel index, timestamp
+  fraction and polarity bit (``compact4_layout``), decoded on the device by
+  ``ops.voxelize.decode_compact4``.
+
+Timestamps are zero-based per window and cast to float32 *after* the
+shift, preserving the reference's precision behavior.
+"""
+
+import numpy as np
+
+_MIN_CAPACITY = 2048
+U16_TS_SCALE = 65535.0
+
+
+def compact4_layout(resolution):
+    """(idx_bits, ts_bits) of the packed-u32 wire for this sensor, or None
+    when it doesn't fit: the linear index needs ``ceil(log2(h*w + 1))``
+    bits (``h*w`` is the out-of-range sentinel), polarity takes bit 31,
+    the timestamp fraction the rest, capped at 16 and floored at 12."""
+    if resolution is None:
+        return None
+    h, w = int(resolution[0]), int(resolution[1])
+    if h <= 0 or w <= 0:
+        return None
+    idx_bits = max(int(h * w).bit_length(), 1)
+    ts_bits = min(31 - idx_bits, 16)
+    if ts_bits < 12:
+        return None
+    return idx_bits, ts_bits
+
+
+def wire_dtypes(wire, int_coords, resolution=None):
+    """Buffer dtypes for a wire format: {xs, ys, ts, ps, count}, or
+    {ev, count} for an eligible ``compact4`` sensor. ``int_coords``: whether
+    the on-disk coordinates are integral; ``resolution``: (h, w)."""
+    if wire == "compact4":
+        if int_coords and compact4_layout(resolution) is not None:
+            return {"ev": np.uint32, "count": np.int32}
+        wire = "compact"  # per-sensor fallback, like u8 coords
+    xy = np.int16 if int_coords else np.float32
+    ts = np.float32
+    if wire == "compact":
+        ts = np.uint16
+        if int_coords and resolution is not None:
+            h, w = resolution
+            if h <= 255 and w <= 255:
+                xy = np.uint8
+    return {"xs": xy, "ys": xy, "ts": ts, "ps": np.int8, "count": np.int32}
+
+
+def alloc_buffers(shape_prefix, capacity, dtypes, alloc=np.zeros):
+    """Event-buffer dict for any wire: per-event arrays shaped
+    ``shape_prefix + (capacity,)``, plus ``count`` shaped ``shape_prefix``."""
+    out = {k: alloc(shape_prefix + (capacity,), d)
+           for k, d in dtypes.items() if k != "count"}
+    out["count"] = alloc(shape_prefix, dtypes["count"])
+    return out
+
+
+def polarity_bit(ps):
+    """Positive-polarity bit per event: LSB for unsigned on-disk polarity
+    ({0,1} or {0,255}), sign for signed or float (already ±1) input."""
+    ps = np.asarray(ps)
+    if np.issubdtype(ps.dtype, np.unsignedinteger):
+        return (ps & 1).astype(np.uint32)
+    return (ps > 0).astype(np.uint32)
+
+
+def quantize_ts(ts, qmax):
+    """Window-normalized timestamp quantization shared by the narrow wires:
+    one f64 division into the scale, then per-event multiply + rint + clip,
+    with the degenerate-window (dt < 1e-9) linspace quantized here.
+    Returns f64 values in [0, qmax]."""
+    ts = np.asarray(ts, np.float64)
+    n = ts.shape[0]
+    if n == 0:
+        return np.zeros((0,), np.float64)
+    dt_w = float(ts[-1] - ts[0])
+    if dt_w < 1e-9:
+        return np.rint(np.arange(n) * (qmax / max(n - 1, 1)))
+    return np.clip(np.rint((ts - ts[0]) * (qmax / dt_w)), 0.0, qmax)
+
+
+def encode_compact4(xs, ys, ts, ps, resolution):
+    """Encode one window's events as packed uint32 (module docstring)."""
+    idx_bits, ts_bits = compact4_layout(resolution)
+    h, w = int(resolution[0]), int(resolution[1])
+    xs = np.asarray(xs).astype(np.int64)
+    ys = np.asarray(ys).astype(np.int64)
+    inb = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    idx = np.where(inb, ys * w + xs, h * w).astype(np.uint32)
+    qmax = float((1 << ts_bits) - 1)
+    q = quantize_ts(ts, qmax).astype(np.uint32)
+    pbit = polarity_bit(ps)
+    return idx | (q << np.uint32(idx_bits)) | (pbit << np.uint32(31))
+
+
+def bucket_capacity(max_count, minimum=_MIN_CAPACITY):
+    cap = minimum
+    while cap < max_count:
+        cap *= 2
+    return cap
+
+
+def outlier_buffers(shape_prefix, chunk_max, dtypes):
+    """One-off zeroed buffers for a chunk whose max event count exceeds the
+    pool capacity chosen by ``plan_capacity``. Returns
+    ``(capacity, buffers)``."""
+    cap_c = bucket_capacity(chunk_max)
+    return cap_c, alloc_buffers(shape_prefix, cap_c, dtypes)
+
+
+def plan_capacity(counts, tail_frac=0.01, min_ratio=4, minimum=_MIN_CAPACITY):
+    """Pool capacity robust to heavy-tailed window sizes: up to
+    ``ceil(tail_frac * n)`` windows may exceed the pool bucket (their chunk
+    escalates to its own buffers), but only when that saves at least
+    ``min_ratio`` x capacity."""
+    counts = np.sort(np.asarray(list(counts), np.int64))
+    n = counts.size
+    if n == 0:
+        return minimum
+    cap_all = bucket_capacity(int(counts[-1]), minimum)
+    k = min(max(1, int(np.ceil(n * tail_frac))), n - 1)
+    if k <= 0:
+        return cap_all
+    base = bucket_capacity(int(counts[n - 1 - k]), minimum)
+    return base if cap_all >= base * min_ratio else cap_all
+
+
+def pack_windows(seq, indices, capacity=None, out=None, metas=None,
+                 out_zeroed=True, wire="f32"):
+    """Pack the given window indices of a Sequence.
+
+    Returns ``(buffers, metas)``: buffers is a dict of numpy arrays with
+    dtypes per ``wire_dtypes(wire, ...)`` — {xs, ys, ts, ps: (T, E);
+    count: (T,)} or {ev: (T, E); count} — and metas the ``seq.window``
+    dicts. Pass ``out`` to pack in place (the wire is then read from its
+    dtypes) and ``out_zeroed=False`` when those buffers are reused, so row
+    tails get cleared of stale events."""
+    if metas is None:
+        metas = [seq.window(i) for i in indices]
+    max_count = max((m["event_count"] for m in metas), default=0)
+    if capacity is None:
+        capacity = bucket_capacity(max_count)
+    if capacity < max_count:
+        raise ValueError(f"capacity {capacity} < window size {max_count}")
+
+    t = len(indices)
+    int_coords = np.issubdtype(seq.xy.dtype, np.integer)
+    resolution = getattr(seq, "sensor_resolution", None)
+
+    if out is None:
+        out = alloc_buffers((t,), capacity,
+                            wire_dtypes(wire, int_coords, resolution))
+        zeroed = True
+    else:
+        for k in out:
+            want = (t,) if k == "count" else (t, capacity)
+            if out[k].shape != want:
+                raise ValueError(f"buffer {k}: shape {out[k].shape}, "
+                                 f"want {want}")
+        zeroed = bool(out_zeroed)
+
+    if "ev" in out:  # packed-u32 wire
+        for row, meta in enumerate(metas):
+            n = meta["event_count"]
+            out["count"][row] = n
+            if not zeroed:
+                out["ev"][row, n:] = 0
+            if n == 0:
+                continue
+            i0, i1 = meta["idx0"], meta["idx1"]
+            xy = seq.xy[i0:i1]
+            out["ev"][row, :n] = encode_compact4(
+                xy[:, 0], xy[:, 1], seq.t[i0:i1], np.asarray(seq.p[i0:i1]),
+                resolution)
+        return out, metas
+
+    compact_ts = out["ts"].dtype == np.uint16
+    u8_coords = out["xs"].dtype == np.uint8
+    for row, meta in enumerate(metas):
+        n = meta["event_count"]
+        out["count"][row] = n
+        if not zeroed:
+            for k in ("xs", "ys", "ts", "ps"):
+                out[k][row, n:] = 0
+        if n == 0:
+            continue
+        i0, i1 = meta["idx0"], meta["idx1"]
+        xy = seq.xy[i0:i1]
+        if u8_coords:
+            xw, yw = xy[:, 0], xy[:, 1]
+            out["xs"][row, :n] = np.where(
+                (xw >= 0) & (xw < 256), xw, 255).astype(np.uint8)
+            out["ys"][row, :n] = np.where(
+                (yw >= 0) & (yw < 256), yw, 255).astype(np.uint8)
+        else:
+            out["xs"][row, :n] = xy[:, 0]
+            out["ys"][row, :n] = xy[:, 1]
+        ets = np.asarray(seq.t[i0:i1])
+        if compact_ts:
+            out["ts"][row, :n] = quantize_ts(ets, U16_TS_SCALE) \
+                .astype(np.uint16)
+        else:
+            out["ts"][row, :n] = (ets - ets[0]).astype(np.float32)
+        out["ps"][row, :n] = (
+            polarity_bit(seq.p[i0:i1]).astype(np.int8) * 2 - 1)
+    return out, metas

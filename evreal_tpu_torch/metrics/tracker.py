@@ -1,0 +1,127 @@
+"""Score tracking and per-sequence outputs (``evreal_tpu/metrics/tracker.py``;
+reference utils/eval_metrics.py:162-350 and eval.py:249-276).
+
+``EvalMetricsTracker`` writes the reference's output tree — timestamps,
+per-metric score rows, PNG frames — gates quantitative evaluation on the
+eval time window and the image/reference timestamp tolerance, drops
+non-finite scores, and reports the ``-1`` no-result sentinel for a metric
+with no scores (kept out of dataset means by the caller). It also writes
+the JAX package's ``done.json`` completion record. Hist-eq, color, videos
+and resume are not ported yet.
+"""
+
+import json
+import math
+import os
+
+from evreal_tpu_torch.harness.outputs import save_inferred_image, truncate
+
+
+class MetricTracker:
+    """Count-weighted running means per key (reference eval.py:249-276)."""
+
+    def __init__(self):
+        self.data = {}
+
+    def update(self, key, value, count=1):
+        if count == 0:
+            return
+        d = self.data.setdefault(key, {"total": 0.0, "count": 0,
+                                       "average": 0.0})
+        d["total"] += value * count
+        d["count"] += count
+        d["average"] = d["total"] / d["count"]
+
+    def get_average(self, key):
+        return self.data.get(key, {"average": 0.0})["average"]
+
+    def get_count(self, key):
+        return self.data.get(key, {"count": 0})["count"]
+
+    def keys(self):
+        return self.data.keys()
+
+
+class EvalMetricsTracker:
+    def __init__(self, output_dir, metric_names, save_images=True,
+                 quan_eval_start_time=0, quan_eval_end_time=float("inf"),
+                 quan_eval_ts_tol_ms=float("inf"),
+                 has_reference_frames=False, run_settings=None):
+        self.output_dir = output_dir
+        self.save_images = save_images
+        self.start_time = quan_eval_start_time
+        self.end_time = quan_eval_end_time
+        self.ts_tol_ms = quan_eval_ts_tol_ms
+        # every ported metric needs a reference frame
+        self.metric_names = list(metric_names) if has_reference_frames else []
+        self.run_settings = run_settings
+        self.scores = {m: [] for m in self.metric_names}
+        self.quan_eval_indices = []
+        self._files = {}
+        self._custom = set()
+        os.makedirs(output_dir, exist_ok=True)
+        try:  # a fresh run invalidates any earlier completion record
+            os.remove(self._path("done.json"))
+        except FileNotFoundError:
+            pass
+        truncate(self._path("timestamps.txt"))
+        for m in self.metric_names:
+            truncate(self._path(m + ".txt"))
+
+    def _path(self, name):
+        return os.path.join(self.output_dir, name)
+
+    def _append(self, name, line):
+        f = self._files.get(name)
+        if f is None:
+            f = open(self._path(name), "a", buffering=1, encoding="utf-8")
+            self._files[name] = f
+        f.write(line)
+
+    def update(self, idx, img_u8, img_ts, ref_ts=None, scores=None):
+        """Record one frame: ``img_u8`` the quantized frame (or None when
+        images are not saved), ``scores`` {metric: value} for it."""
+        if ref_ts is None:
+            ref_ts = img_ts
+        self._append("timestamps.txt", "{} {:.15f}\n".format(idx, img_ts))
+        if img_u8 is not None and self.save_images:
+            save_inferred_image(self.output_dir, img_u8, idx)
+        inside_cut = self.start_time <= img_ts <= self.end_time
+        tol_ok = abs(ref_ts - img_ts) * 1000 <= self.ts_tol_ms
+        if inside_cut and tol_ok and scores is not None:
+            self.quan_eval_indices.append(idx)
+            for name in self.metric_names:
+                if name not in scores:
+                    continue
+                s = float(scores[name])
+                if math.isfinite(s):
+                    self.scores[name].append(s)
+                    self._append(name + ".txt", "{} {:.5f}\n".format(idx, s))
+
+    def save_custom_metric(self, idx, metric_name, metric_value):
+        name = metric_name + ".txt"
+        if metric_name not in self._custom:  # first row truncates the file
+            truncate(self._path(name))
+            self._custom.add(metric_name)
+        self._append(name, "{} {:.5f}\n".format(idx, metric_value))
+
+    def finalize(self):
+        """Close the text files and write the ``done.json`` record."""
+        for f in self._files.values():
+            f.close()
+        self._files = {}
+        complete = [m for m in self.metric_names
+                    if self.scores[m] or not self.quan_eval_indices]
+        mean_scores = {k: v for k, v in self.get_mean_scores().items()
+                       if k in complete}
+        with open(self._path("done.json"), "w", encoding="utf-8") as f:
+            json.dump({"num_evaluated": self.get_num_quan_evaluations(),
+                       "mean_scores": mean_scores, "metrics": complete,
+                       "settings": self.run_settings}, f)
+
+    def get_num_quan_evaluations(self):
+        return len(self.quan_eval_indices)
+
+    def get_mean_scores(self):
+        return {name: (sum(v) / len(v) if v else -1)
+                for name, v in self.scores.items()}

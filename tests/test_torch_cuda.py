@@ -1,0 +1,104 @@
+"""The CUDA voxelizer on the card, against its plain PyTorch version on the
+same CUDA tensors. These tests need an NVIDIA GPU and skip without one;
+the file imports nothing of JAX, so on the card they run as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest imports JAX, which the card's
+machine need not have)."""
+
+import numpy as np
+import pytest
+import torch
+
+from evreal_tpu_torch.data.packing import quantize_ts
+from evreal_tpu_torch.kernels import voxelize_cuda
+from evreal_tpu_torch.ops import voxelize as tvox
+
+ATOL = 2e-5  # tests/test_pallas_voxelize.py:25
+H, W, B = 180, 240, 5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card: python -m pytest "
+                    "--noconftest -m cuda tests/test_torch_cuda.py)")
+    return torch.device("cuda")
+
+
+def windows(seed, t=8, e=4096, float_coords=False):
+    """(T, E) f32-wire buffers: count 0 and E, a degenerate dt, an unsorted
+    timestamp with t_norm <= -1, out-of-bounds coordinates."""
+    rng = np.random.default_rng(seed)
+    if float_coords:
+        xs = rng.uniform(-2.0, W + 2.0, (t, e)).astype(np.float32)
+        ys = rng.uniform(-2.0, H + 2.0, (t, e)).astype(np.float32)
+        xs[:, :8] = -0.5
+    else:
+        xs = rng.integers(-3, W + 3, (t, e)).astype(np.int16)
+        ys = rng.integers(-3, H + 3, (t, e)).astype(np.int16)
+    ts = np.sort(rng.uniform(0.0, 0.03, (t, e)), axis=1)
+    ts = (ts - ts[:, :1]).astype(np.float32)
+    ps = (rng.integers(0, 2, (t, e)) * 2 - 1).astype(np.int8)
+    count = rng.integers(e // 2, e + 1, t).astype(np.int32)
+    count[0], count[1] = 0, e
+    ts[2] = 0.0
+    ts[3, 5] = -ts[3, count[3] - 1]
+    return xs, ys, ts, ps, count
+
+
+def on(device, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in arrays]
+
+
+def wires():
+    xs, ys, ts, ps, count = windows(1)
+    q = np.zeros(ts.shape, np.uint16)
+    for i, n in enumerate(count):
+        q[i, :n] = quantize_ts(ts[i, :n], 65535.0).astype(np.uint16)
+    fx, fy, _, _, _ = windows(2, float_coords=True)
+    u8 = lambda a: np.where((a >= 0) & (a < 256), a, 255).astype(np.uint8)  # noqa: E731
+    return {"int16 / f32 / int8": (xs, ys, ts, ps, count),
+            "fractional f32 coords": (fx, fy, ts, ps, count),
+            "uint8 / uint16": (u8(xs), u8(ys), q, ps, count),
+            "int32 / f32 ps": (xs.astype(np.int32), ys.astype(np.int32), ts,
+                               ps.astype(np.float32), count)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["int16 / f32 / int8", "fractional f32 coords",
+                                  "uint8 / uint16", "int32 / f32 ps"])
+def test_kernel_matches_plain(cuda_device, wire):
+    args = on(cuda_device, *wires()[wire])
+    before = voxelize_cuda.launches
+    got = tvox.voxelize_windows(*args, B, (H, W))
+    want = tvox.voxelize_windows_plain(*args, B, (H, W),
+                                       accum_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert voxelize_cuda.launches == before + 1
+    assert got.shape == (8, B, H, W) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_zero_capacity_returns_zeros_without_launch(cuda_device):
+    z = torch.zeros((4, 0), dtype=torch.int16, device=cuda_device)
+    f = torch.zeros((4, 0), device=cuda_device)
+    count = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    before = voxelize_cuda.launches
+    out = voxelize_cuda.voxelize(z, z, f, z.to(torch.int8), count, B, (H, W))
+    assert voxelize_cuda.launches == before and not bool(out.any())
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    xs, ys, ts, ps, count = on(cuda_device, *windows(3))
+    with pytest.raises(ValueError, match="contiguous"):
+        voxelize_cuda.voxelize(xs.t().contiguous().t(), ys, ts, ps, count,
+                               B, (H, W))
+    with pytest.raises(ValueError, match="dtype"):
+        voxelize_cuda.voxelize(xs, ys, ts.double(), ps, count, B, (H, W))
+    with pytest.raises(ValueError, match="count"):
+        voxelize_cuda.voxelize(xs, ys, ts, ps, count.long(), B, (H, W))

@@ -1,0 +1,36 @@
+"""The port imports nothing of JAX or of the JAX package. Checked in a
+fresh interpreter: this test process has imported jax already
+(tests/conftest.py)."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = r"""
+import importlib, json, pkgutil, sys
+import evreal_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(evreal_tpu_torch.__path__,
+                                               "evreal_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "evreal_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_evreal_tpu():
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          check=False)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    assert {"evreal_tpu_torch.harness.runner", "evreal_tpu_torch.cli",
+            "evreal_tpu_torch.kernels.voxelize_cuda",
+            "evreal_tpu_torch.ops.voxelize",
+            "evreal_tpu_torch.__main__"} <= set(report["modules"])
