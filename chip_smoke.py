@@ -9,26 +9,40 @@ Phases, each printing one JSON line:
    limit;
 2. build — builds the CUDA voxelizer from ``evreal_tpu_torch/kernels/csrc``
    and prints nvcc's ``-Xptxas -v`` report;
-3. kernel — runs the voxelizer at the eval path's shape (T = 32 windows,
-   E = 32768 slots, 5 bins, 180 x 240) on every wire it takes, with edge
-   cases (count 0 and E, a degenerate dt, out-of-bounds and fractional
-   negative coordinates, an unsorted timestamp with t_norm <= -1, zero
-   capacity), against its plain PyTorch version run on the same CUDA
-   tensors with float64 accumulation (CUDA ``index_add_`` itself uses
-   atomics): max abs err <= 2e-5. Times the kernel, the plain version and
+3. kernel — runs the voxelizer at the single-sequence path's shape
+   (T = 32 windows, E = 32768 slots, 5 bins, 180 x 240) in both precisions
+   (HIGHEST: f32 weights; DEFAULT: bf16 factors) on every wire it takes,
+   compact4 decoded in the kernel, with edge cases (count 0 and E, a
+   degenerate dt, out-of-bounds and fractional negative coordinates, an
+   unsorted timestamp with t_norm <= -1, zero capacity), against its plain
+   PyTorch version run on the same CUDA tensors with float64 accumulation
+   (bf16 factors where asked): max abs err <= 2e-5. Checks determinism: two
+   launches on the same inputs, and one launch over 32 windows against two
+   over 16 + 16, are bit-identical. Times the kernel, the plain version and
    ``index_add_`` (CUDA events, median of 25 after warm-up, L2 flushed);
-4. main path — writes a synthetic 180 x 240 sequence (96 windows of ~30k
-   events, a moving blob) and random-init full-width E2VID weights
-   (seed 0), runs the port's ``evaluate`` on ``cuda`` with
-   ``-c std -qm mse ssim``, and checks the output tree, the finite scores
-   and that the voxelizer launched once per chunk of 32 windows. Then the
-   first 8 windows run again on the CPU through the plain path: raw
-   reconstructions agree within 1e-4, the written frames within 1 grey
-   level and the scores within 1e-3 (TF32 off on the card);
-   profile — torch.profiler over one steady chunk of 32 windows on the
-   card: device busy time against wall time, and the costliest kernels;
-5. the ``kernels`` line: per ported kernel its launches on the main path,
-   error and times beside its bound;
+4. main path (single sequence) — writes a synthetic 180 x 240 sequence (96
+   windows of ~30k events, a moving blob) and random-init full-width E2VID
+   weights (seed 0), runs the port's ``evaluate`` on ``cuda`` with
+   ``-c std -qm mse ssim`` (f32, the f32 wire), and checks the output tree,
+   the finite scores and that the voxelizer launched once per chunk of 32
+   windows. Then the first 8 windows run again on the CPU through the plain
+   path: raw reconstructions agree within 1e-4, the written frames within
+   1 grey level and the scores within 1e-3 (TF32 off on the card);
+   profile — torch.profiler over one steady chunk of 32 windows;
+5. lockstep — writes 16 synthetic sequences (distinct seeds) and runs
+   ``evaluate`` over them as one lockstep group, first in the bf16 serving
+   mode on the compact4 wire (``EVREAL_DTYPE=bfloat16``,
+   ``EVREAL_WIRE=compact4``), then in f32 on the f32 wire, then two of them
+   one at a time (``EVREAL_BATCHED=0``). Checks the 16 output trees, finite
+   scores, one voxelizer launch per chunk (DEFAULT precision in bf16,
+   HIGHEST in f32), f32 lockstep score rows against the single-sequence
+   rows within 1e-4, raw reconstructions of the first 8 windows of two
+   sequences lockstep against single within 1e-4, and bf16 against f32
+   raw reconstructions (before post-norm) within mean 0.02 / max 0.2.
+   Times the bf16-factor kernel at the lockstep launch's shape (512
+   windows) on its data; profile — one steady bf16 lockstep chunk;
+6. the ``kernels`` line: per ported kernel its launches on its path, error
+   and times beside its bound;
 
 then nvidia-smi's name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -41,18 +55,22 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 
 import numpy as np
 
 TOL_KERNEL = 2e-5  # tests/test_pallas_voxelize.py:25
 TOL_RECON = 1e-4   # raw E2VID output, card (TF32 off) vs CPU, 8 steps
 TOL_SCORE = 1e-3   # mse / ssim rows, card vs CPU
+TOL_LOCKSTEP = 1e-4  # f32 lockstep vs single on the card (TF32 off)
+BF16_MEAN, BF16_MAX = 0.02, 0.2  # tests/test_bf16_mode.py:39-40
 ECD = dict(t=32, e=32768, h=180, w=240, b=5)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM, f32 outside the tensor cores
 EVENTS_PER_WINDOW = 30000
 N_WINDOWS = 96
 CHUNK_T = 32
+N_LANES = 16
 
 
 def emit(obj):
@@ -67,6 +85,25 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
+
+
+@contextmanager
+def env(**values):
+    """Set (str) or unset (None) environment variables for the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +125,42 @@ def time_ms(torch, fn, flush, warmup=5, iters=25):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def time_variant(torch, vox, bufs, precision, hw, num_bins):
+    """The kernel (one ``voxelize_windows`` call as the runner makes it),
+    its plain version and one ``index_add_`` of the same deposits, timed on
+    ``bufs``; the bound from this input's valid events (each read once)
+    and the f32 output (written once)."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    bf16 = precision == "default"
+    ms = time_ms(torch, lambda: vox.voxelize_windows(
+        bufs, num_bins, hw, precision=precision), flush)
+    plain_ms = time_ms(torch, lambda: vox.voxelize_buffers_plain(
+        bufs, num_bins, hw, bf16_factors=bf16), flush)
+    if "ev" in bufs:
+        split = vox.decode_compact4(bufs["ev"], hw)
+        event_bytes = 4
+    else:
+        split = [bufs[k] for k in ("xs", "ys", "ts", "ps")]
+        event_bytes = sum(a.element_size() for a in split)
+    idx, wgt = vox.event_deposits(*split, bufs["count"], num_bins, hw, bf16)
+    t_n = bufs["count"].shape[0]
+    acc = torch.zeros(t_n * num_bins * hw[0] * hw[1], device="cuda")
+    library_ms = time_ms(torch, lambda: acc.index_add_(0, idx, wgt), flush)
+    n_valid = int(bufs["count"].sum())
+    in_bytes = n_valid * event_bytes + t_n * 4
+    out_bytes = t_n * num_bins * hw[0] * hw[1] * 4
+    # sub, div, mul, floor, sub, sub, 2 mul per event (+ 6 integer decode
+    # operations on compact4, + 2 roundings for bf16 factors)
+    ops = n_valid * (8 + (6 if "ev" in bufs else 0) + (2 if bf16 else 0))
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": in_bytes + out_bytes, "valid_events": n_valid,
+            "windows": t_n}
 
 
 # ---------------------------------------------------------------------------
@@ -123,17 +196,18 @@ def phase_kernel(torch, vc, vox):
     dev = torch.device("cuda")
     from evreal_tpu_torch.data.packing import encode_compact4, quantize_ts
 
-    def cuda(*arrays):
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                for a in arrays]
+    def cuda(keys, *arrays):
+        return {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for k, a in zip(keys, arrays)}
 
+    split = ("xs", "ys", "ts", "ps", "count")
     xs, ys, ts, ps, count = make_events(rng, c["t"], c["e"], c["h"], c["w"])
-    cases = {"f32 wire": cuda(xs, ys, ts, ps, count)}
-    fxs, fys, fts, fps, fcount = make_events(rng, c["t"], c["e"], c["h"],
-                                             c["w"], float_coords=True)
-    cases["f32 wire, fractional coords"] = cuda(fxs, fys, fts, fps, fcount)
+    cases = {"f32 wire": cuda(split, xs, ys, ts, ps, count)}
+    cases["f32 wire, fractional coords"] = cuda(
+        split, *make_events(rng, c["t"], c["e"], c["h"], c["w"],
+                            float_coords=True))
     # compact (uint16 ts, uint8 coords at this sensor) and compact4 (packed
-    # u32, decoded on the device) encodings of the same windows
+    # u32) encodings of the same windows
     q = np.zeros_like(ts, dtype=np.uint16)
     ev = np.zeros(ts.shape, np.uint32)
     for i in range(c["t"]):
@@ -141,57 +215,59 @@ def phase_kernel(torch, vc, vox):
         q[i, :n] = quantize_ts(ts[i, :n], 65535.0).astype(np.uint16)
         ev[i, :n] = encode_compact4(xs[i, :n], ys[i, :n], ts[i, :n],
                                     ps[i, :n], (c["h"], c["w"]))
-    u8 = lambda a: np.where((a >= 0) & (a < 256), a, 255).astype(np.uint8)
-    cases["uint16 wire"] = cuda(u8(xs), u8(ys), q, ps, count)
-    ev_t, count_t = cuda(ev, count)
-    cases["compact4 wire (decoded)"] = list(
-        vox.decode_compact4(ev_t, (c["h"], c["w"]))) + [count_t]
+    u8 = lambda a: np.where((a >= 0) & (a < 256), a, 255).astype(np.uint8)  # noqa: E731
+    cases["uint16 wire"] = cuda(split, u8(xs), u8(ys), q, ps, count)
+    cases["compact4 wire"] = cuda(("ev", "count"), ev, count)
 
     hw = (c["h"], c["w"])
-    errs = {}
-    for name, args in cases.items():
-        got = vox.voxelize_windows(*args, c["b"], hw)
-        want = vox.voxelize_windows_plain(*args, c["b"], hw,
-                                          accum_dtype=torch.float64)
-        torch.cuda.synchronize()
-        errs[name] = float((got - want).abs().max())
-        check(errs[name] <= TOL_KERNEL,
-              f"voxelizer {name}: max abs err {errs[name]} > {TOL_KERNEL}")
+    errs = {p: {} for p in vc.PRECISIONS}
+    deterministic = {}
+    for name, bufs in cases.items():
+        for prec in vc.PRECISIONS:
+            got = vox.voxelize_windows(bufs, c["b"], hw, precision=prec)
+            want = vox.voxelize_buffers_plain(
+                bufs, c["b"], hw, accum_dtype=torch.float64,
+                bf16_factors=prec == "default")
+            again = vox.voxelize_windows(bufs, c["b"], hw, precision=prec)
+            halves = torch.cat([vox.voxelize_windows(
+                {k: v[sl].contiguous() for k, v in bufs.items()}, c["b"], hw,
+                precision=prec) for sl in (slice(0, 16), slice(16, 32))])
+            torch.cuda.synchronize()
+            errs[prec][name] = float((got - want).abs().max())
+            check(errs[prec][name] <= TOL_KERNEL,
+                  f"voxelizer {name} ({prec}): max abs err "
+                  f"{errs[prec][name]} > {TOL_KERNEL}")
+            deterministic[f"{name} ({prec})"] = same = (
+                torch.equal(got, again) and torch.equal(got, halves))
+            check(same, f"voxelizer {name} ({prec}): not bit-identical "
+                  f"across launches or across 32 vs 16 + 16 windows")
+    for bad in ("high", "bf16"):
+        try:
+            vox.voxelize_windows(cases["f32 wire"], c["b"], hw,
+                                 precision=bad)
+        except ValueError:
+            continue
+        fail(f"precision {bad!r} must raise")
     before = vc.launches
-    z = [a[:, :0].contiguous() for a in cases["f32 wire"][:4]]
-    empty = vox.voxelize_windows(*z, cases["f32 wire"][4], c["b"], hw)
+    z = {k: (v[:, :0].contiguous() if k != "count" else v)
+         for k, v in cases["f32 wire"].items()}
+    empty = vox.voxelize_windows(z, c["b"], hw)
     check(vc.launches == before and not bool(empty.abs().sum()),
           "zero capacity must return zeros without a launch")
 
-    # times at the main path's wire (int16 coords, f32 ts, int8 ps)
-    args = cases["f32 wire"]
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    ms = time_ms(torch, lambda: vox.voxelize_windows(*args, c["b"], hw),
-                 flush)
-    plain_ms = time_ms(torch, lambda: vox.voxelize_windows_plain(
-        *args, c["b"], hw), flush)
-    idx, wgt = vox.event_deposits(*args, c["b"], hw)
-    acc = torch.zeros(c["t"] * c["b"] * c["h"] * c["w"], device=dev)
-    library_ms = time_ms(torch, lambda: acc.index_add_(0, idx, wgt), flush)
-    n_valid = int(count.sum())
-    in_bytes = n_valid * (2 * 2 + 4 + 1) + count.nbytes
-    out_bytes = c["t"] * c["b"] * c["h"] * c["w"] * 4
-    ops = n_valid * 8  # sub, div, mul, floor, sub, sub, 2 mul per event
-    bound_s = max((in_bytes + out_bytes) / HBM_BYTES_PER_S,
-                  ops / F32_OPS_PER_S)
-    bound_by = ("bytes" if (in_bytes + out_bytes) / HBM_BYTES_PER_S
-                >= ops / F32_OPS_PER_S else "operations")
-    result = {"phase": "kernel", "max_abs_err": errs, "ms": ms,
-              "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-              "bytes": in_bytes + out_bytes, "valid_events": n_valid,
+    # times at the single-sequence path's wire (int16 coords, f32 ts, int8
+    # ps), both precisions
+    times = {p: time_variant(torch, vox, cases["f32 wire"], p, hw, c["b"])
+             for p in vc.PRECISIONS}
+    result = {"phase": "kernel", "max_abs_err": errs,
+              "bit_identical": deterministic, "times_f32_wire": times,
               "shape": c}
     emit(result)
     return result
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the main path, one sequence
 # ---------------------------------------------------------------------------
 
 def make_sequence(out_dir, height, width, n_windows, events_per_window,
@@ -239,14 +315,53 @@ def make_sequence(out_dir, height, width, n_windows, events_per_window,
         json.dump({"sensor_resolution": [height, width]}, f)
 
 
+def write_config(work, group, name, cfg):
+    os.makedirs(os.path.join(work, "config", group), exist_ok=True)
+    with open(os.path.join(work, "config", group, name + ".json"), "w",
+              encoding="utf-8") as f:
+        json.dump(cfg, f)
+
+
 def read_rows(path):
     rows = [line.split() for line in open(path, encoding="utf-8")]
     return {int(i): float(v) for i, v in rows}
 
 
+def check_tree(out, n_windows, hw, decode_frames=True, all_scored=True):
+    """A complete output tree: a timestamp row and a frame PNG for every
+    window, finite score rows, of every window when ``all_scored`` (else
+    of at least 90% of them: in bf16 a near-flat frame, such as that of an
+    empty first window, can make the robust post-norm divide by zero, and
+    the tracker then drops the score, as the reference does). Returns
+    ({metric: {window: score}}, decoded frames)."""
+    from evreal_tpu_torch.harness.outputs import decode_png_gray8
+
+    stamps = read_rows(os.path.join(out, "timestamps.txt"))
+    check(sorted(stamps) == list(range(n_windows)),
+          f"{out}/timestamps.txt rows {len(stamps)} != {n_windows}")
+    scores = {m: read_rows(os.path.join(out, m + ".txt"))
+              for m in ("mse", "ssim")}
+    for m, rows in scores.items():
+        check(set(rows) <= set(range(n_windows)) and (
+            len(rows) == n_windows if all_scored
+            else len(rows) >= 0.9 * n_windows),
+            f"{out}/{m}.txt: {len(rows)} rows of {n_windows} windows")
+        check(all(np.isfinite(v) for v in rows.values()),
+              f"{out}/{m}.txt has non-finite scores")
+    names = [f"frame_{i:010d}.png" for i in range(n_windows)]
+    check(all(os.path.exists(os.path.join(out, n)) for n in names),
+          f"{out}: frame PNGs missing")
+    frames = []
+    for n in (names if decode_frames else names[:1]):
+        with open(os.path.join(out, n), "rb") as f:
+            frames.append(decode_png_gray8(f.read()))
+    check(all(f.shape == tuple(hw) for f in frames),
+          f"{out}: frame PNGs have the wrong shape")
+    return scores, frames
+
+
 def phase_main_path(torch, vc, work, card, device="cuda"):
     from evreal_tpu_torch.convert.params import flatten, save_params
-    from evreal_tpu_torch.harness.outputs import decode_png_gray8
     from evreal_tpu_torch.harness.runner import (MethodBundle, evaluate,
                                                  get_method_config)
     from evreal_tpu_torch.harness.timers import TimingLog
@@ -254,7 +369,6 @@ def phase_main_path(torch, vc, work, card, device="cuda"):
     from evreal_tpu_torch.models import flagship_e2vid_kwargs
     from evreal_tpu_torch.models.init import init_e2vid
     from evreal_tpu_torch.data import Sequence, pack_windows
-    from evreal_tpu_torch.ops.normalize import post_process_normalization
 
     c = ECD
     t0 = time.perf_counter()
@@ -270,46 +384,32 @@ def phase_main_path(torch, vc, work, card, device="cuda"):
     os.makedirs(os.path.dirname(npz))
     save_params(npz, flatten(tree), {"class": "E2VIDRecurrent",
                                      "kwargs": kw, "model_name": "E2VID"})
-    for group, name, cfg in (
-            ("method", "E2VID", {"model_name": "E2VID", "model_path": npz,
-                                 "event_tensor_normalization": True,
-                                 "post_process_norm": "robust"}),
-            ("dataset", "SYN", {"root_path": os.path.join(work, "data",
-                                                          "SYN"),
-                                "sequences": {"seq0": {}}})):
-        os.makedirs(os.path.join(work, "config", group), exist_ok=True)
-        with open(os.path.join(work, "config", group, name + ".json"), "w",
-                  encoding="utf-8") as f:
-            json.dump(cfg, f)
+    write_config(work, "method", "E2VID",
+                 {"model_name": "E2VID", "model_path": npz,
+                  "event_tensor_normalization": True,
+                  "post_process_norm": "robust"})
+    write_config(work, "dataset", "SYN",
+                 {"root_path": os.path.join(work, "data", "SYN"),
+                  "sequences": {"seq0": {}}})
     setup_s = time.perf_counter() - t0
 
     os.chdir(work)  # config/ and outputs/ resolve here; std from the repo
     timings = TimingLog()
-    vc.launches = 0
+    vc.reset_launches()
     t0 = time.perf_counter()
-    evaluate(["E2VID"], ["std"], ["SYN"], ["mse", "ssim"], device=device,
-             timings=timings)
+    with env(EVREAL_DTYPE=None, EVREAL_WIRE=None):
+        evaluate(["E2VID"], ["std"], ["SYN"], ["mse", "ssim"], device=device,
+                 timings=timings)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = vc.launches
+    launches = dict(vc.launches_by_precision)
     n_chunks = -(-N_WINDOWS // CHUNK_T)
-    check(launches == n_chunks, f"voxelizer launched {launches} times on "
-          f"the main path, want one per chunk ({n_chunks})")
+    check(launches == {"highest": n_chunks, "default": 0},
+          f"voxelizer launched {launches} on the single-sequence path, want "
+          f"one HIGHEST launch per chunk ({n_chunks})")
 
     out = os.path.join(work, "outputs", "std", "SYN", "seq0", "E2VID")
-    scores = {m: read_rows(os.path.join(out, m + ".txt"))
-              for m in ("mse", "ssim")}
-    for m, rows in scores.items():
-        check(sorted(rows) == list(range(N_WINDOWS)),
-              f"{m}.txt rows {len(rows)} != {N_WINDOWS}")
-        check(all(np.isfinite(v) for v in rows.values()),
-              f"{m}.txt has non-finite scores")
-    frames = []
-    for i in range(N_WINDOWS):
-        with open(os.path.join(out, f"frame_{i:010d}.png"), "rb") as f:
-            frames.append(decode_png_gray8(f.read()))
-    check(all(f.shape == (c["h"], c["w"]) for f in frames),
-          "frame PNGs have the wrong shape")
+    scores, frames = check_tree(out, N_WINDOWS, (c["h"], c["w"]))
 
     # the first 8 windows again: card vs the plain CPU path
     method_config = get_method_config("E2VID")
@@ -325,8 +425,7 @@ def phase_main_path(torch, vc, work, card, device="cuda"):
                                                   method_config, c["b"])
         vox = runner.voxelize(runner.upload(bufs))
         _, raw = runner.reconstruct(runner.init_state(), vox)
-        clipped = post_process_normalization(raw, runner.post_norm).clamp(
-            0.0, 1.0)
+        _, clipped = runner.post(raw)
         sc = runner.metric_scores([("mse", mse), ("ssim", ssim)], clipped,
                                   runner.upload({"r": refs})["r"])
         res[dev] = {"raw": raw.cpu(), "u8": runner.quantize_u8(clipped).cpu(),
@@ -344,7 +443,7 @@ def phase_main_path(torch, vc, work, card, device="cuda"):
     result = {"phase": "main_path", "method": "E2VID", "width": "full",
               "kwargs": kw, "sensor": [c["h"], c["w"]],
               "windows": N_WINDOWS, "chunk_t": CHUNK_T,
-              "voxelize_launches": launches,
+              "voxelize_launches": launches["highest"],
               "ms_per_frame_steady": timings.ms_per_frame("E2VID"),
               "card": card,
               "wall_s": wall_s, "setup_s": setup_s,
@@ -354,28 +453,23 @@ def phase_main_path(torch, vc, work, card, device="cuda"):
               "png_max_diff_vs_cpu": png_err,
               "score_max_abs_err_vs_cpu": score_err}
     emit(result)
-    phase_profile(torch, runners[device], seq, CHUNK_T)
+    bufs = runners[device].upload(pack_windows(seq, list(range(CHUNK_T)))[0])
+    phase_profile(torch, runners[device], bufs, CHUNK_T, "single")
     return result
 
 
-def phase_profile(torch, runner, seq, n):
+def phase_profile(torch, runner, bufs, n, label):
     """Where one steady chunk's time goes (voxelize, n model steps,
     post-norm): torch.profiler's device events against the wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
-    from evreal_tpu_torch.data import pack_windows
-
-    bufs = runner.upload(pack_windows(seq, list(range(n)))[0])
     runner.run(runner.init_state(), bufs, n)  # warm
-    acts = [ProfilerActivity.CPU]
-    if runner.device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-        torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         runner.run(runner.init_state(), bufs, n)
-        if runner.device.type == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans, by_name = [], {}
     for e in prof.events():
@@ -394,12 +488,177 @@ def phase_profile(torch, runner, seq, n):
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     busy_ms = busy_us / 1e3 if spans else None  # None: not measured
-    emit({"phase": "profile", "windows": n, "wall_ms": wall_ms,
+    emit({"phase": "profile", "path": label, "lanes": runner.lanes,
+          "windows": n, "dtype": str(runner.dtype), "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": (1 - busy_ms / wall_ms) if spans else None,
           "voxelize_ms": sum(t for k, (t, _) in by_name.items()
                              if "voxelize" in k) / 1e3 if spans else None,
           "top_kernels": [[k[:90], t / 1e3, c] for k, (t, c) in top]})
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the lockstep path, 16 sequences
+# ---------------------------------------------------------------------------
+
+def pack_lanes(seqs, n, capacity, wire):
+    """The first ``n`` windows of every sequence as (N, n, E) buffers."""
+    from evreal_tpu_torch.data import pack_windows
+
+    packed = [pack_windows(s, list(range(n)), capacity=capacity,
+                           wire=wire)[0] for s in seqs]
+    return {k: np.stack([p[k] for p in packed]) for k in packed[0]}
+
+
+def lockstep_raw(runner, bufs):
+    """Raw reconstructions (N, n, H, W) of the runner's lanes over the
+    windows of ``bufs`` (N, n, E), before post-norm."""
+    dev = runner.upload(bufs)
+    n, t = dev["count"].shape
+    vox = runner.voxelize({k: v.reshape((n * t,) + tuple(v.shape[2:]))
+                           for k, v in dev.items()})
+    _, raw = runner.rollout(runner.init_state(),
+                            vox.view((n, t) + tuple(vox.shape[1:])))
+    return raw.cpu()
+
+
+def phase_lockstep(torch, vc, vox, work, card, device="cuda"):
+    from evreal_tpu_torch.data import Sequence
+    from evreal_tpu_torch.data.packing import bucket_capacity
+    from evreal_tpu_torch.harness.runner import (MethodBundle, evaluate,
+                                                 get_method_config)
+    from evreal_tpu_torch.harness.timers import TimingLog
+
+    c = ECD
+    hw = (c["h"], c["w"])
+    t0 = time.perf_counter()
+    names = [f"seq{j:02d}" for j in range(N_LANES)]
+    root = os.path.join(work, "data", "LOCK")
+    for j, name in enumerate(names):
+        make_sequence(os.path.join(root, name), c["h"], c["w"], N_WINDOWS,
+                      EVENTS_PER_WINDOW, seed=100 + j)
+    write_config(work, "dataset", "LOCK",
+                 {"root_path": root, "sequences": {n: {} for n in names}})
+    write_config(work, "dataset", "LOCK2",
+                 {"root_path": root, "sequences": {n: {} for n in names[:2]}})
+    setup_s = time.perf_counter() - t0
+    os.chdir(work)
+    n_chunks = -(-N_WINDOWS // CHUNK_T)
+
+    runs = {}
+    for label, dataset, switches, want in (
+            ("bf16_compact4", "LOCK", dict(EVREAL_DTYPE="bfloat16",
+                                           EVREAL_WIRE="compact4"),
+             {"highest": 0, "default": n_chunks}),
+            ("f32_f32wire", "LOCK", dict(EVREAL_DTYPE=None, EVREAL_WIRE=None),
+             {"highest": n_chunks, "default": 0}),
+            ("f32_single", "LOCK2", dict(EVREAL_DTYPE=None, EVREAL_WIRE=None,
+                                         EVREAL_BATCHED="0"),
+             {"highest": 2 * n_chunks, "default": 0})):
+        timings = TimingLog()
+        vc.reset_launches()
+        t1 = time.perf_counter()
+        with env(**switches):
+            evaluate(["E2VID"], ["std"], [dataset], ["mse", "ssim"],
+                     device=device, timings=timings)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t1
+        launches = dict(vc.launches_by_precision)
+        check(launches == want, f"{label}: voxelizer launches {launches}, "
+              f"want {want} (one per chunk of {CHUNK_T} windows)")
+        lanes = names if dataset == "LOCK" else names[:2]
+        trees = {n: check_tree(os.path.join("outputs", "std", dataset, n,
+                                            "E2VID"), N_WINDOWS, hw,
+                               decode_frames=False,
+                               all_scored=not label.startswith("bf16"))[0]
+                 for n in lanes}
+        ms = timings.ms_per_frame("E2VID")
+        runs[label] = {"launches": launches, "wall_s": wall_s,
+                       "scored_windows": sum(len(t["mse"])
+                                             for t in trees.values()),
+                       "ms_per_frame_steady": ms,
+                       "frames_per_s_steady": 1e3 / ms if ms else None,
+                       "scores": trees}
+        os.rename(os.path.join("outputs", "std", dataset),
+                  os.path.join("outputs", "std", f"{dataset}_{label}"))
+
+    score_err = max(abs(runs["f32_f32wire"]["scores"][n][m][i]
+                        - runs["f32_single"]["scores"][n][m][i])
+                    for n in names[:2] for m in ("mse", "ssim")
+                    for i in range(N_WINDOWS))
+    check(score_err <= TOL_LOCKSTEP, f"f32 lockstep vs single score rows: "
+          f"{score_err} > {TOL_LOCKSTEP}")
+
+    # raw reconstructions of the first 8 windows: lockstep (16 lanes) vs
+    # single (f32), and bf16 on compact4 vs f32 (before post-norm)
+    method_config = get_method_config("E2VID")
+    seqs = [Sequence(os.path.join(root, n), num_bins=c["b"]) for n in names]
+    cap = bucket_capacity(EVENTS_PER_WINDOW)
+    raw = {}
+    with env(EVREAL_DTYPE=None):
+        bundle = MethodBundle("E2VID", method_config, device)
+        f32_bufs = pack_lanes(seqs, 8, cap, "f32")
+        raw["f32"] = lockstep_raw(bundle.batched_runner_for(
+            hw, method_config, c["b"], N_LANES), f32_bufs)
+        single = bundle.runner_for(hw, method_config, c["b"])
+        raw["single"] = torch.stack([single.reconstruct(
+            single.init_state(), single.voxelize(single.upload(
+                {k: v[j] for k, v in f32_bufs.items()})))[1].cpu()
+            for j in range(2)])
+    with env(EVREAL_DTYPE="bfloat16"):
+        bundle = MethodBundle("E2VID", method_config, device)
+        bf16_runner = bundle.batched_runner_for(hw, method_config, c["b"],
+                                                N_LANES)
+        raw["bf16"] = lockstep_raw(bf16_runner,
+                                   pack_lanes(seqs, 8, cap, "compact4"))
+    recon_err = float((raw["f32"][:2] - raw["single"]).abs().max())
+    check(recon_err <= TOL_LOCKSTEP, f"f32 lockstep vs single raw "
+          f"reconstructions: {recon_err} > {TOL_LOCKSTEP}")
+    d = (raw["bf16"][:2] - raw["f32"][:2]).abs()
+    bf16_mean, bf16_max = float(d.mean()), float(d.max())
+    check(bf16_mean < BF16_MEAN and bf16_max < BF16_MAX,
+          f"bf16 vs f32 raw reconstructions: mean {bf16_mean} (< "
+          f"{BF16_MEAN}), max {bf16_max} (< {BF16_MAX})")
+    check(bf16_max > 0, "bf16 and f32 reconstructions are identical: the "
+          "bf16 mode did not run")
+
+    # the bf16-factor kernel at the lockstep launch's shape, on its data:
+    # chunk 0 of the 16 lanes on compact4, (512, E) windows in one launch
+    chunk = bf16_runner.upload(pack_lanes(seqs, CHUNK_T, cap, "compact4"))
+    flat = {k: v.reshape((N_LANES * CHUNK_T,) + tuple(v.shape[2:]))
+            for k, v in chunk.items()}
+    got = vox.voxelize_windows(flat, c["b"], hw, precision="default")
+    want = vox.voxelize_buffers_plain(flat, c["b"], hw,
+                                      accum_dtype=torch.float64,
+                                      bf16_factors=True)
+    torch.cuda.synchronize()
+    lock_err = float((got - want).abs().max())
+    check(lock_err <= TOL_KERNEL, f"bf16-factor kernel at the lockstep "
+          f"shape: {lock_err} > {TOL_KERNEL}")
+    del got, want
+    kernel_times = {"default_compact4": time_variant(
+        torch, vox, flat, "default", hw, c["b"])}
+    f32_chunk = {k: torch.from_numpy(v).cuda().reshape(
+        (N_LANES * CHUNK_T,) + v.shape[2:])
+        for k, v in pack_lanes(seqs, CHUNK_T, cap, "f32").items()}
+    kernel_times["highest_f32"] = time_variant(torch, vox, f32_chunk,
+                                               "highest", hw, c["b"])
+    result = {"phase": "lockstep", "method": "E2VID", "width": "full",
+              "lanes": N_LANES, "windows_per_lane": N_WINDOWS,
+              "chunk_t": CHUNK_T, "card": card, "setup_s": setup_s,
+              "runs": {k: {kk: vv for kk, vv in v.items() if kk != "scores"}
+                       for k, v in runs.items()},
+              "mean_mse": {k: float(np.mean([np.mean(list(t["mse"].values()))
+                                             for t in v["scores"].values()]))
+                           for k, v in runs.items()},
+              "score_max_abs_err_lockstep_vs_single": score_err,
+              "recon_max_abs_err_lockstep_vs_single": recon_err,
+              "bf16_vs_f32_raw": {"mean": bf16_mean, "max": bf16_max},
+              "kernel_lockstep_max_abs_err": lock_err,
+              "kernel_at_lockstep_shape": kernel_times}
+    emit(result)
+    phase_profile(torch, bf16_runner, chunk, CHUNK_T, "lockstep_bf16")
+    return result
 
 
 def main():
@@ -429,20 +688,40 @@ def main():
         cwd = os.getcwd()
         try:
             main_res = phase_main_path(torch, vc, work, smi)
+            lock = phase_lockstep(torch, vc, vox, work, smi)
         finally:
             os.chdir(cwd)
 
-    emit({"kernels": [{
-        "name": "voxelize_windows", "route": "cuda",
-        "source": "evreal_tpu_torch/kernels/csrc/voxelize.cu",
-        "replaces": "evreal_tpu/kernels/voxelize_pallas.py:249",
-        "replaces_also": "evreal_tpu/kernels/voxelize_pallas.py:93",
-        "launches": main_res["voxelize_launches"],
-        "max_abs_err": max(kern["max_abs_err"].values()),
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"], "bound_us": kern["bound_ms"] * 1e3,
-        "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
-        "card": smi}]})
+    source = "evreal_tpu_torch/kernels/csrc/voxelize.cu"
+    f32_times = kern["times_f32_wire"]["highest"]
+    bf16_times = lock["kernel_at_lockstep_shape"]["default_compact4"]
+    emit({"kernels": [
+        {"name": "voxelize_windows", "route": "cuda", "source": source,
+         "replaces": "evreal_tpu/kernels/voxelize_pallas.py:249",
+         "replaces_also": "evreal_tpu/kernels/voxelize_pallas.py:93",
+         "precision": "highest",
+         "launches": main_res["voxelize_launches"],
+         "launches_lockstep_f32": lock["runs"]["f32_f32wire"]["launches"][
+             "highest"],
+         "max_abs_err": max(kern["max_abs_err"]["highest"].values()),
+         "ms": f32_times["ms"], "plain_ms": f32_times["plain_ms"],
+         "bound_ms": f32_times["bound_ms"], "bound_by": f32_times["bound_by"],
+         "library_ms": f32_times["library_ms"],
+         "shape": [f32_times["windows"], ECD["e"]], "card": smi},
+        {"name": "voxelize_windows_bf16_factors", "route": "cuda",
+         "source": source,
+         "replaces": "evreal_tpu/kernels/voxelize_pallas.py:249 "
+                     "(bf16_factors=True, :165-169)",
+         "precision": "default",
+         "launches": lock["runs"]["bf16_compact4"]["launches"]["default"],
+         "max_abs_err": max(list(kern["max_abs_err"]["default"].values())
+                            + [lock["kernel_lockstep_max_abs_err"]]),
+         "ms": bf16_times["ms"], "plain_ms": bf16_times["plain_ms"],
+         "bound_ms": bf16_times["bound_ms"],
+         "bound_by": bf16_times["bound_by"],
+         "library_ms": bf16_times["library_ms"],
+         "shape": [bf16_times["windows"], ECD["e"]], "wire": "compact4",
+         "card": smi}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})

@@ -15,17 +15,32 @@ capacities are bucketed to powers of two. Three wire formats
   ``q = rint((ts - ts0) / dt * 65535)`` and uint8 coordinates when the
   sensor fits (out-of-range values park at the 255 sentinel);
 * ``compact4`` — one uint32 per event: linear pixel index, timestamp
-  fraction and polarity bit (``compact4_layout``), decoded on the device by
-  ``ops.voxelize.decode_compact4``.
+  fraction and polarity bit (``compact4_layout``), decoded by the CUDA
+  voxelizer on the card and by ``ops.voxelize.decode_compact4`` on the CPU.
+
+``wire_format()`` reads the active wire from ``EVREAL_WIRE``.
 
 Timestamps are zero-based per window and cast to float32 *after* the
 shift, preserving the reference's precision behavior.
 """
 
+import os
+
 import numpy as np
 
 _MIN_CAPACITY = 2048
 U16_TS_SCALE = 65535.0
+WIRES = ("f32", "compact", "compact4")
+
+
+def wire_format():
+    """Active wire format: ``EVREAL_WIRE`` in {f32, compact, compact4},
+    default f32."""
+    wire = os.environ.get("EVREAL_WIRE", "f32")
+    if wire not in WIRES:
+        raise ValueError(
+            f"EVREAL_WIRE must be 'f32', 'compact' or 'compact4': {wire!r}")
+    return wire
 
 
 def compact4_layout(resolution):

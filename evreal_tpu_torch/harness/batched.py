@@ -1,0 +1,178 @@
+"""Lockstep batched evaluation of N same-resolution sequences
+(``evreal_tpu/harness/batched.py``).
+
+The recurrence forces window t to follow window t - 1 within a sequence,
+but sequences are independent, so N of them run in lockstep as the batch
+dimension of each model step: the state carries an N axis, every
+convolution sees N images, and the per-chunk costs (one voxelizer launch,
+the host's dispatch) are shared N ways. Windowing, eval-window gating and
+the output files stay per sequence, on the host.
+
+Per chunk of ``chunk_t`` windows:
+
+    (N, T, E) event buffers -> device -> ONE voxelize_windows launch over
+    the (N * T, E) view -> input norm (f32) -> serving dtype -> pad -> per
+    window t: one model step of batch N -> f32 -> crop -> post-norm per
+    image -> clip -> u8 and (N, T) MSE/SSIM (f32, TF32 off)
+
+Lanes whose sequence has ended, and the windows past a lane's end in a
+ragged chunk, voxelize as empty windows (``count`` is cleared first) and
+their outputs are never read.
+"""
+
+import numpy as np
+import torch
+
+from evreal_tpu_torch.data import pack_windows, plan_capacity
+from evreal_tpu_torch.data.packing import alloc_buffers, outlier_buffers
+from evreal_tpu_torch.harness.runner import (
+    MethodRunner,
+    check_ported,
+    event_dtypes,
+    from_host,
+    gate_windows,
+    make_tracker,
+    record_window,
+    run_chunks,
+    to_host,
+    usable_metrics,
+)
+from evreal_tpu_torch.harness.timers import DeviceTimer, TimingLog
+
+
+class BatchedRunner(MethodRunner):
+    """``MethodRunner`` over ``n`` sequences in lockstep: buffers carry a
+    leading lane axis, ``(N, T, E)`` events and ``(N, T)`` counts."""
+
+    def __init__(self, model, *, n, **kwargs):
+        super().__init__(model, **kwargs)
+        self.lanes = n
+
+    @torch.no_grad()
+    def run(self, state, bufs, valid_t):
+        """One chunk: voxelize all N * T windows in one launch, then run
+        the first ``valid_t`` windows of every lane. Returns (state,
+        images, clipped), each image tensor (N, valid_t, H, W)."""
+        n, t = bufs["count"].shape
+        vox = self.voxelize({k: v.reshape((n * t,) + tuple(v.shape[2:]))
+                             for k, v in bufs.items()})
+        vox = vox.view((n, t) + tuple(vox.shape[1:]))
+        state, imgs = self.rollout(state, vox[:, :valid_t])
+        return (state,) + self.post(imgs)
+
+
+def _ref_dtype(seqs, procs, metas_all):
+    """uint8 reference pools when every image-bearing sequence stores u8
+    frames, else f32 (``evreal_tpu/harness/batched.py:394-404``)."""
+    for seq, proc, metas in zip(seqs, procs, metas_all):
+        if (seq.has_images and proc
+                and seq.frame_u8(metas[proc[0]]["frame_index"]) is None):
+            return np.float32
+    return np.uint8
+
+
+def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
+                                  bundle, method_config, sequences, metrics,
+                                  timings=None):
+    """Evaluate one method on N same-resolution sequences in lockstep.
+    Returns ``[(num_evaluated, mean_scores)]`` aligned with
+    ``sequences``."""
+    check_ported(eval_config)
+    seqs = [s["dataset"] for s in sequences]
+    n = len(seqs)
+    resolution = tuple(seqs[0].sensor_resolution)
+    runner = bundle.batched_runner_for(resolution, method_config,
+                                       seqs[0].num_bins, n)
+    device = runner.device
+    specs = usable_metrics(metrics, resolution, device)
+    trackers = [make_tracker(eval_config, dataset_name, s, method_name,
+                             metrics) for s in sequences]
+    eval_infer_all = eval_config.get("eval_infer_all", False)
+    metas_all = [seq.windows() for seq in seqs]
+    procs = [gate_windows(metas, s["start_time_s"], s["end_time_s"],
+                          eval_infer_all)
+             for s, metas in zip(sequences, metas_all)]
+
+    chunk_t = runner.chunk_t
+    capacity = plan_capacity(metas_all[j][i]["event_count"]
+                             for j in range(n) for i in procs[j])
+    dtypes = event_dtypes(seqs)
+    pool = alloc_buffers((n, chunk_t), capacity, dtypes)
+    use = specs if any(seq.has_images for seq in seqs) else []
+    ref_dtype = _ref_dtype(seqs, procs, metas_all)
+    save_images = any(t.save_images for t in trackers)
+    state = runner.init_state()
+
+    def load_refs(chunk_idxs, valid_t):
+        """(N, valid_t, H, W) reference frames; ref-less lanes and rows
+        past a lane's end stay zero (their scores are never recorded)."""
+        refs = np.zeros((n, valid_t) + resolution, ref_dtype)
+        for j, (seq, idxs) in enumerate(zip(seqs, chunk_idxs)):
+            if not seq.has_images:
+                continue
+            for r, i in enumerate(idxs):
+                fi = metas_all[j][i]["frame_index"]
+                refs[j, r] = (seq.frame_u8(fi) if ref_dtype == np.uint8
+                              else seq.frame(fi))
+        return refs
+
+    def dispatch(k):
+        nonlocal state
+        chunk_idxs = [proc[k * chunk_t:(k + 1) * chunk_t] for proc in procs]
+        valid_t = max(len(idxs) for idxs in chunk_idxs)
+        chunk_max = max((metas_all[j][i]["event_count"]
+                         for j in range(n) for i in chunk_idxs[j]),
+                        default=0)
+        if chunk_max <= capacity:
+            cap_c, bufs, zeroed = capacity, pool, False
+            # ended and padding lanes must voxelize as empty windows, not
+            # as whatever the pool held for an earlier chunk
+            bufs["count"][:] = 0
+        else:  # outlier chunk (rare by plan_capacity): one-off buffers
+            cap_c, bufs = outlier_buffers((n, chunk_t), chunk_max, dtypes)
+            zeroed = True
+        for j, (seq, idxs) in enumerate(zip(seqs, chunk_idxs)):
+            if idxs:
+                pack_windows(seq, idxs, capacity=cap_c,
+                             out={key: v[j, :len(idxs)]
+                                  for key, v in bufs.items()},
+                             metas=[metas_all[j][i] for i in idxs],
+                             out_zeroed=zeroed)
+        state, _, clipped = runner.run(state, runner.upload(bufs), valid_t)
+        out = {}
+        if save_images:
+            out["images"] = runner.quantize_u8(clipped)
+        if use:
+            refs = runner.upload({"r": load_refs(chunk_idxs, valid_t)})["r"]
+            out.update(runner.metric_scores(use, clipped, refs))
+        return ((chunk_idxs,) + to_host(out),
+                sum(len(idxs) for idxs in chunk_idxs))
+
+    def drain(entry):
+        chunk_idxs, host, event = entry
+        host = from_host(host, event)
+        images = host.pop("images", None)
+        for j, idxs in enumerate(chunk_idxs):
+            for r, i in enumerate(idxs):
+                record_window(trackers[j], seqs[j], i, metas_all[j][i],
+                              images[j, r] if images is not None else None,
+                              {key: v[j, r] for key, v in host.items()})
+
+    timings = timings if timings is not None else TimingLog()
+    max_chunks = max((-(-len(p) // chunk_t) for p in procs), default=0)
+    total = sum(len(p) for p in procs)
+    with DeviceTimer(timings, method_name, total, device) as timer:
+        run_chunks(max_chunks, dispatch, drain, timer)
+
+    results, first_err = [], None
+    for tracker in trackers:
+        # finalize every tracker even if one sequence's writer failed
+        try:
+            tracker.finalize()
+        except Exception as e:  # noqa: BLE001 — re-raised after the loop
+            first_err = first_err or e
+        results.append((tracker.get_num_quan_evaluations(),
+                        tracker.get_mean_scores()))
+    if first_err is not None:
+        raise first_err
+    return results

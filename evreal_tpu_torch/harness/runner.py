@@ -1,21 +1,35 @@
-"""Evaluation loop of the single-sequence grayscale path
-(``evreal_tpu/harness/runner.py:551-627`` and ``:787-1076``; reference
-eval.py:189-455).
+"""Evaluation loop of the grayscale path (``evreal_tpu/harness/runner.py``;
+reference eval.py:189-455): the single-sequence runner here, and the
+grouping that sends same-resolution sequences to the lockstep batched
+runner (``harness/batched.py``).
 
 Per chunk of ``chunk_t`` windows:
 
     packed (T, E) event buffers -> device -> ONE voxelize_windows launch
-    -> per window: input norm, pad, model step -> crop -> post-norm ->
-    clip -> u8 quantization and batched MSE/SSIM on the device
+    -> input norm (f32) -> cast to the serving dtype -> pad -> per window:
+    model step -> f32 -> crop -> post-norm -> clip -> u8 quantization and
+    batched MSE/SSIM on the device (always f32, TF32 off)
 
 then the quantized frames and scores come back to the host, where the
 tracker writes the output tree. Chunk k's results are copied back
 asynchronously and written while chunk k + 1 runs on the device.
 
-Out of scope so far (ROADMAP.md, Queue 1): color, hist-eq, resume,
-staging, the lockstep batched runner, bf16 serving, the compact wires.
+The JAX package's switches, with its parsing and errors:
+``EVREAL_DTYPE`` (float32 | bfloat16 serving mode), ``EVREAL_WIRE``
+(f32 | compact | compact4, checked once at the start of ``evaluate``),
+``EVREAL_VOXEL_PRECISION`` (highest | default; "high" cannot be honored by
+the voxelizer and raises), ``EVREAL_BATCHED`` (lockstep groups, on unless
+"0"), ``EVREAL_BATCH_N`` (group width cap) and ``EVREAL_CHUNK_T``; the
+last two are parsed at import, as there.
+
+Out of scope so far (ROADMAP.md, Queue 1): color, hist-eq, videos and
+resume raise ``NotImplementedError``. The TPU-only levers (staging, mesh,
+S2D, UPFUSE, scan unroll) have no counterpart: a group runs on the one
+device it is given.
 """
 
+import contextlib
+import copy
 import glob
 import os
 import traceback
@@ -30,6 +44,7 @@ from evreal_tpu_torch.data.packing import (
     alloc_buffers,
     outlier_buffers,
     wire_dtypes,
+    wire_format,
 )
 from evreal_tpu_torch.harness.config import (
     get_dataset_configs,
@@ -54,7 +69,10 @@ from evreal_tpu_torch.ops.pad import CropParams
 from evreal_tpu_torch.ops.voxelize import voxelize_windows
 from evreal_tpu_torch.utils import f32_parity, resolve_device
 
-DEFAULT_CHUNK_T = 32
+# parsed at import, as in the JAX package (runner.py:46-50), so a malformed
+# value fails at once rather than inside the per-dataset containment
+DEFAULT_CHUNK_T = int(os.environ.get("EVREAL_CHUNK_T", "32"))
+DEFAULT_BATCH_N = int(os.environ.get("EVREAL_BATCH_N", "0"))
 PIPELINE_DEPTH = 2  # chunks in flight before the host drains the oldest
 DEFAULT_METRICS = ["mse", "ssim"]
 
@@ -64,25 +82,97 @@ DEFAULT_METRICS = ["mse", "ssim"]
 _U8_LUT = np.arange(256, dtype=np.float32) / np.float32(255.0)
 
 
+# ---------------------------------------------------------------------------
+# compute dtype and the voxel stage (evreal_tpu/harness/runner.py:78-267)
+# ---------------------------------------------------------------------------
+
+def compute_dtype():
+    """Model compute dtype: ``EVREAL_DTYPE=bfloat16`` (or ``bf16``) is the
+    bf16 serving mode; anything else is float32, for reference parity."""
+    name = os.environ.get("EVREAL_DTYPE", "float32")
+    return torch.bfloat16 if name in ("bfloat16", "bf16") else torch.float32
+
+
+def cast_model(model, dtype):
+    """The model in the serving dtype: itself in f32, else a copy whose
+    parameters and buffers are rounded to ``dtype`` (round to nearest even,
+    as the JAX package's ``cast_params``)."""
+    if dtype == torch.float32:
+        return model
+    return copy.deepcopy(model).to(dtype)
+
+
+def precision_ctx(dtype):
+    """f32 parity (TF32 off) for f32 stages; bf16 mode keeps the backend's
+    defaults (``matmul_precision_ctx``, evreal_tpu/harness/runner.py:244)."""
+    return f32_parity() if dtype == torch.float32 \
+        else contextlib.nullcontext()
+
+
+def voxel_precision_choice(supported, dtype):
+    """Binning precision of the voxelizer: the validated
+    ``EVREAL_VOXEL_PRECISION`` override, else "default" (bf16 factors) for
+    bf16 stages, else None (the voxelizer's own default, HIGHEST).
+    ``supported`` is the precision names the voxelizer can honor; a pin it
+    cannot honor is an operator error, not a silent no-op."""
+    choice = os.environ.get("EVREAL_VOXEL_PRECISION")
+    if choice is not None:
+        if choice not in ("highest", "high", "default"):
+            raise ValueError(f"EVREAL_VOXEL_PRECISION={choice!r}: "
+                             "expected highest|high|default")
+        if choice not in supported:
+            raise ValueError(
+                f"EVREAL_VOXEL_PRECISION={choice!r}: the selected "
+                f"EVREAL_VOXELIZE impl cannot honor it (supports: "
+                f"{', '.join(supported) or 'none'})")
+        return choice
+    if "default" in supported and dtype == torch.bfloat16:
+        return "default"
+    return None
+
+
+def make_voxel_stage(num_bins, hw, event_norm, out_dtype=torch.float32):
+    """Event-buffer dict -> ``(T, num_bins, H, W)`` voxel grids in
+    ``out_dtype``: one ``voxelize_windows`` launch (binning in f32), the
+    event norm in f32, then the cast to the serving dtype — after the norm
+    and before the pad, as ``make_voxel_stage`` does in the JAX package."""
+    precision = voxel_precision_choice(voxelize_windows.supported_precisions,
+                                       out_dtype)
+
+    def stage(bufs):
+        vox = voxelize_windows(bufs, num_bins, hw, precision=precision)
+        if event_norm:
+            vox = normalize_event_tensor(vox)
+        return vox.to(out_dtype)
+
+    return stage
+
+
 class MethodRunner:
     """Chunked eval pipeline for one (model, sensor resolution) on one
-    device."""
+    device, over ``lanes`` sequences at once (1 here; the lockstep
+    ``BatchedRunner`` of ``harness/batched.py`` runs more)."""
+
+    lanes = 1
 
     def __init__(self, model, *, event_norm, post_norm, height, width,
-                 num_bins, device, chunk_t=DEFAULT_CHUNK_T):
+                 num_bins, device, chunk_t=None):
         self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
-        self.event_norm = event_norm
+        self.dtype = compute_dtype()
+        self.model = cast_model(model, self.dtype).to(self.device).eval()
         self.post_norm = post_norm
         self.h, self.w = height, width
         self.num_bins = num_bins
-        self.chunk_t = chunk_t
+        self.chunk_t = DEFAULT_CHUNK_T if chunk_t is None else chunk_t
         self.crop = CropParams(width, height, model.num_encoders)
         self.u8_lut = torch.from_numpy(_U8_LUT).to(self.device)
+        self.voxel_stage = make_voxel_stage(num_bins, (height, width),
+                                            event_norm, self.dtype)
 
     def init_state(self):
         ph, pw = self.crop.padded_shape
-        return self.model.init_state(1, ph, pw, device=self.device)
+        return self.model.init_state(self.lanes, ph, pw, device=self.device,
+                                     dtype=self.dtype)
 
     def upload(self, arrays):
         """Numpy arrays -> device tensors (pinned, non-blocking on CUDA;
@@ -96,24 +186,36 @@ class MethodRunner:
         return out
 
     def voxelize(self, bufs):
-        """Device event buffers -> (T, num_bins, H, W) voxel grids."""
-        return voxelize_windows(bufs["xs"], bufs["ys"], bufs["ts"],
-                                bufs["ps"], bufs["count"], self.num_bins,
-                                (self.h, self.w))
+        """Device event buffers (any wire) -> ``(T, num_bins, H, W)`` input
+        grids in the serving dtype (``make_voxel_stage``)."""
+        return self.voxel_stage(bufs)
 
     @torch.no_grad()
-    def reconstruct(self, state, vox):
-        """Run the model over the windows of ``vox`` (n, B, H, W) in order.
-        Returns (state, images (n, H, W) cropped, before post-norm)."""
-        with f32_parity():
-            if self.event_norm:
-                vox = normalize_event_tensor(vox)
+    def rollout(self, state, vox):
+        """Run the model over ``vox`` (N, n, B, H, W), window by window,
+        all lanes in one step. Returns (state, images (N, n, H, W) in f32,
+        cropped, before post-norm)."""
+        with precision_ctx(self.dtype):
             vox = self.crop.pad(vox)
             imgs = []
-            for i in range(vox.shape[0]):
-                out, state = self.model(vox[i:i + 1], state)
-                imgs.append(out["image"])
-            return state, self.crop.crop(torch.cat(imgs))[:, 0]
+            for i in range(vox.shape[1]):
+                out, state = self.model(vox[:, i], state)
+                imgs.append(out["image"][:, 0])
+            return state, self.crop.crop(torch.stack(imgs, 1).float())
+
+    def reconstruct(self, state, vox):
+        """One sequence: ``vox`` (n, B, H, W) -> (state, images (n, H, W))
+        f32, cropped, before post-norm."""
+        state, imgs = self.rollout(state, vox[None])
+        return state, imgs[0]
+
+    def post(self, imgs):
+        """Post-norm of each image of ``imgs`` (..., H, W), then clip.
+        Returns (images, clipped)."""
+        flat = imgs.reshape((-1,) + tuple(imgs.shape[-2:]))
+        imgs = post_process_normalization(flat, self.post_norm).view(
+            imgs.shape)
+        return imgs, imgs.clamp(0.0, 1.0)
 
     @torch.no_grad()
     def run(self, state, bufs, valid_t):
@@ -121,8 +223,7 @@ class MethodRunner:
         its first ``valid_t`` windows. Returns (state, images, clipped)."""
         vox = self.voxelize(bufs)
         state, imgs = self.reconstruct(state, vox[:valid_t])
-        imgs = post_process_normalization(imgs, self.post_norm)
-        return state, imgs, imgs.clamp(0.0, 1.0)
+        return (state,) + self.post(imgs)
 
     @staticmethod
     def quantize_u8(clipped):
@@ -132,11 +233,14 @@ class MethodRunner:
 
     @torch.no_grad()
     def metric_scores(self, specs, clipped, refs):
-        """{name: (T,) scores} of ``clipped`` against ``refs`` (T, H, W)."""
+        """{name: scores shaped like ``clipped``'s leading dims} of
+        ``clipped`` against ``refs`` (..., H, W), in f32 (TF32 off)."""
         if refs.dtype == torch.uint8:
             refs = self.u8_lut[refs.to(torch.int64)]
+        lead, hw = clipped.shape[:-2], tuple(clipped.shape[-2:])
+        imgs, refs = clipped.reshape((-1,) + hw), refs.reshape((-1,) + hw)
         with f32_parity():
-            return {name: fn(clipped, refs) for name, fn in specs}
+            return {name: fn(imgs, refs).view(lead) for name, fn in specs}
 
 
 # ---------------------------------------------------------------------------
@@ -176,17 +280,30 @@ class MethodBundle:
         self.model.to(self.device).eval()
         self._runners = {}
 
-    def runner_for(self, sensor_resolution, method_config, num_bins):
-        key = tuple(sensor_resolution)
+    def _runner(self, key, cls, sensor_resolution, method_config, num_bins,
+                **kwargs):
         if key not in self._runners:
             h, w = sensor_resolution
-            self._runners[key] = MethodRunner(
+            self._runners[key] = cls(
                 self.model,
                 event_norm=method_config.get("event_tensor_normalization",
                                              False),
                 post_norm=method_config.get("post_process_norm", "none"),
-                height=h, width=w, num_bins=num_bins, device=self.device)
+                height=h, width=w, num_bins=num_bins, device=self.device,
+                **kwargs)
         return self._runners[key]
+
+    def runner_for(self, sensor_resolution, method_config, num_bins):
+        return self._runner(tuple(sensor_resolution), MethodRunner,
+                            sensor_resolution, method_config, num_bins)
+
+    def batched_runner_for(self, sensor_resolution, method_config, num_bins,
+                           n):
+        from evreal_tpu_torch.harness.batched import BatchedRunner
+
+        return self._runner(("batched", n) + tuple(sensor_resolution),
+                            BatchedRunner, sensor_resolution, method_config,
+                            num_bins, n=n)
 
 
 # ---------------------------------------------------------------------------
@@ -270,13 +387,24 @@ def run_settings(eval_config, sequence):
             "end_time_s": sequence.get("end_time_s")}
 
 
-def _usable_metrics(specs, hw, device):
-    """Drop, with a message, metrics that cannot score this image shape
-    (SSIM below its 11-px window): the reference's per-metric
-    containment."""
+def check_ported(eval_config):
+    """Raise for the eval settings the port does not run yet."""
+    if (eval_config.get("color", False) or eval_config.get("create_video")
+            or eval_config.get("histeq", "none") != "none"):
+        raise NotImplementedError("color, hist-eq and video eval configs "
+                                  "are not ported yet (ROADMAP.md, Queue 1)")
+    if os.environ.get("EVREAL_RESUME", "0").lower() in ("1", "true", "yes"):
+        raise NotImplementedError("EVREAL_RESUME is not ported yet "
+                                  "(ROADMAP.md, Queue 1 item 6)")
+
+
+def usable_metrics(metrics, hw, device):
+    """Resolve ``metrics`` and drop, with a message, those that cannot
+    score this image shape (SSIM below its 11-px window): the reference's
+    per-metric containment."""
     probe = torch.zeros((1,) + tuple(hw), device=device)
     out = []
-    for name, fn in specs:
+    for name, fn in metric_fns.resolve(metrics):
         try:
             fn(probe, probe)
         except ValueError as exc:
@@ -287,7 +415,49 @@ def _usable_metrics(specs, hw, device):
     return out
 
 
-def _to_host(tensors):
+def make_tracker(eval_config, dataset_name, sequence, method_name, metrics):
+    """The sequence's ``EvalMetricsTracker`` (single and lockstep paths)."""
+    seq = sequence["dataset"]
+    return EvalMetricsTracker(
+        sequence_output_dir(eval_config, dataset_name, sequence["name"],
+                            method_name),
+        metrics,
+        save_images=eval_config.get("save_images", True),
+        quan_eval_start_time=sequence["start_time_s"],
+        quan_eval_end_time=sequence["end_time_s"],
+        quan_eval_ts_tol_ms=eval_config["ts_tol_ms"],
+        has_reference_frames=seq.has_images,
+        run_settings=run_settings(eval_config, sequence))
+
+
+def event_dtypes(seqs):
+    """Event-buffer dtypes of the active wire (``EVREAL_WIRE``) for
+    sequences of one resolution: integer coordinates only when every
+    sequence stores them."""
+    int_coords = all(np.issubdtype(s.xy.dtype, np.integer) for s in seqs)
+    return wire_dtypes(wire_format(), int_coords, seqs[0].sensor_resolution)
+
+
+def reference_frames(seq, metas):
+    """The windows' reference frames, stacked: raw uint8 when the memmap
+    stores it (converted on the device by a lookup table), else f32."""
+    u8 = [seq.frame_u8(m["frame_index"]) for m in metas]
+    if all(r is not None for r in u8):
+        return np.stack(u8)
+    return np.stack([seq.frame(m["frame_index"]) for m in metas])
+
+
+def record_window(tracker, seq, i, meta, image, scores):
+    """One window's frame, scores and event rate into its tracker."""
+    tracker.update(i, image, meta["voxel_timestamp"],
+                   meta["frame_timestamp"] if seq.has_images else None,
+                   scores=scores)
+    rate = (0 if meta["event_count"] <= 1 or meta["dt"] == 0
+            else meta["event_count"] / meta["dt"])
+    tracker.save_custom_metric(i, "event_rate", rate)
+
+
+def to_host(tensors):
     """Start device->host copies of a dict of tensors; returns the host
     dict and an event to wait on (None on the CPU)."""
     if not tensors or next(iter(tensors.values())).device.type != "cuda":
@@ -301,28 +471,42 @@ def _to_host(tensors):
     return host, event
 
 
+def from_host(host, event):
+    """Wait for ``to_host``'s copies; the dict as numpy arrays."""
+    if event is not None:
+        event.synchronize()
+    return {k: v.numpy() for k, v in host.items()}
+
+
+def run_chunks(n_chunks, dispatch, drain, timer):
+    """Dispatch chunks ``0..n_chunks-1`` in order (``dispatch(k)`` returns
+    (entry, frames)), draining the oldest once ``PIPELINE_DEPTH`` are in
+    flight. The first chunk bears the kernel build and cuDNN's algorithm
+    search: when more follow it is drained at once and its frames leave
+    the timer's steady-state sample."""
+    pending = []
+    for k in range(n_chunks):
+        entry, frames = dispatch(k)
+        pending.append(entry)
+        if k == 0 and n_chunks > 1:
+            drain(pending.pop(0))
+            timer.exclude_warmup(frames)
+        if len(pending) >= PIPELINE_DEPTH:
+            drain(pending.pop(0))
+    for entry in pending:
+        drain(entry)
+
+
 def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
                             method_config, sequence, metrics, timings=None):
-    if (eval_config.get("color", False) or eval_config.get("create_video")
-            or eval_config.get("histeq", "none") != "none"):
-        raise NotImplementedError("color, hist-eq and video eval configs "
-                                  "are not ported yet (ROADMAP.md, Queue 1)")
+    check_ported(eval_config)
     seq = sequence["dataset"]
-    output_dir = sequence_output_dir(eval_config, dataset_name,
-                                     sequence["name"], method_name)
     runner = bundle.runner_for(seq.sensor_resolution, method_config,
                                seq.num_bins)
     device = runner.device
-    specs = _usable_metrics(metric_fns.resolve(metrics),
-                            seq.sensor_resolution, device)
-    tracker = EvalMetricsTracker(
-        output_dir, metrics,
-        save_images=eval_config.get("save_images", True),
-        quan_eval_start_time=sequence["start_time_s"],
-        quan_eval_end_time=sequence["end_time_s"],
-        quan_eval_ts_tol_ms=eval_config["ts_tol_ms"],
-        has_reference_frames=seq.has_images,
-        run_settings=run_settings(eval_config, sequence))
+    specs = usable_metrics(metrics, seq.sensor_resolution, device)
+    tracker = make_tracker(eval_config, dataset_name, sequence, method_name,
+                           metrics)
 
     metas_all = seq.windows()
     proc = gate_windows(metas_all, sequence["start_time_s"],
@@ -330,28 +514,22 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
                         eval_config.get("eval_infer_all", False))
     chunk_t = runner.chunk_t
     capacity = plan_capacity(metas_all[i]["event_count"] for i in proc)
-    dtypes = wire_dtypes("f32", np.issubdtype(seq.xy.dtype, np.integer),
-                         seq.sensor_resolution)
+    dtypes = event_dtypes([seq])
     pool = alloc_buffers((chunk_t,), capacity, dtypes)
     use = specs if seq.has_images else []
+    state = runner.init_state()
 
-    def stack_refs(metas):
-        u8 = [seq.frame_u8(m["frame_index"]) for m in metas]
-        if all(r is not None for r in u8):
-            return np.stack(u8)
-        return np.stack([seq.frame(m["frame_index"]) for m in metas])
-
-    def dispatch(state, c0):
-        chunk = proc[c0:c0 + chunk_t]
+    def dispatch(k):
+        nonlocal state
+        chunk = proc[k * chunk_t:(k + 1) * chunk_t]
         valid_t = len(chunk)
         metas = [metas_all[i] for i in chunk]
         chunk_max = max(m["event_count"] for m in metas)
         if chunk_max <= capacity:
-            bufs, zeroed = pool, False
+            cap_c, bufs, zeroed = capacity, pool, False
         else:  # outlier chunk (rare by plan_capacity): one-off buffers
-            _, bufs = outlier_buffers((chunk_t,), chunk_max, dtypes)
+            cap_c, bufs = outlier_buffers((chunk_t,), chunk_max, dtypes)
             zeroed = True
-        cap_c = bufs["xs"].shape[1]
         pack_windows(seq, chunk, capacity=cap_c,
                      out={k: v[:valid_t] for k, v in bufs.items()},
                      out_zeroed=zeroed, metas=metas)
@@ -361,43 +539,23 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
         if tracker.save_images:
             out["images"] = runner.quantize_u8(clipped)
         if use:
-            refs = runner.upload({"refs": stack_refs(metas)})["refs"]
-            out.update(runner.metric_scores(use, clipped, refs))
-        host, event = _to_host(out)
-        return state, (chunk, metas, host, event)
+            refs = runner.upload({"refs": reference_frames(seq, metas)})
+            out.update(runner.metric_scores(use, clipped, refs["refs"]))
+        return (chunk, metas) + to_host(out), valid_t
 
     def drain(entry):
         chunk, metas, host, event = entry
-        if event is not None:
-            event.synchronize()
-        host = {k: v.numpy() for k, v in host.items()}
+        host = from_host(host, event)
         images = host.pop("images", None)
         for j, (i, meta) in enumerate(zip(chunk, metas)):
-            tracker.update(
-                i, images[j] if images is not None else None,
-                meta["voxel_timestamp"],
-                meta["frame_timestamp"] if seq.has_images else None,
-                scores={k: v[j] for k, v in host.items()})
-            rate = (0 if meta["event_count"] <= 1 or meta["dt"] == 0
-                    else meta["event_count"] / meta["dt"])
-            tracker.save_custom_metric(i, "event_rate", rate)
+            record_window(tracker, seq, i, meta,
+                          images[j] if images is not None else None,
+                          {k: v[j] for k, v in host.items()})
 
     timings = timings if timings is not None else TimingLog()
-    state = runner.init_state()
-    pending = []
+    n_chunks = -(-len(proc) // chunk_t)
     with DeviceTimer(timings, method_name, len(proc), device) as timer:
-        for ci, c0 in enumerate(range(0, len(proc), chunk_t)):
-            state, entry = dispatch(state, c0)
-            pending.append(entry)
-            if ci == 0 and len(proc) > chunk_t:
-                # the first chunk bears the kernel build and cuDNN's
-                # algorithm search: time the steady state after it
-                drain(pending.pop(0))
-                timer.exclude_warmup(len(entry[0]))
-            if len(pending) >= PIPELINE_DEPTH:
-                drain(pending.pop(0))
-        for entry in pending:
-            drain(entry)
+        run_chunks(n_chunks, dispatch, drain, timer)
     tracker.finalize()
     return tracker.get_num_quan_evaluations(), tracker.get_mean_scores()
 
@@ -416,8 +574,33 @@ def accumulate_mean_scores(dataset_metrics, results):
             dataset_metrics.update(metric_name, score, num_eval)
 
 
+def split_groups(groups, cap_n):
+    """Cap lockstep group width at ``cap_n`` sequences (EVREAL_BATCH_N);
+    0 = unlimited."""
+    if cap_n <= 0:
+        return groups
+    return [g[i:i + cap_n] for g in groups
+            for i in range(0, len(g), cap_n)]
+
+
+def sequence_groups(eval_config, sequences):
+    """The dataset's sequences in evaluation groups: same-resolution
+    groups of at most EVREAL_BATCH_N for the lockstep runner, unless
+    ``EVREAL_BATCHED=0`` or a color config, which take one at a time."""
+    if (eval_config.get("color", False)
+            or os.environ.get("EVREAL_BATCHED", "1") == "0"):
+        return [[s] for s in sequences]
+    by_res = OrderedDict()
+    for sequence in sequences:
+        key = tuple(sequence["dataset"].sensor_resolution)
+        by_res.setdefault(key, []).append(sequence)
+    return split_groups(list(by_res.values()), DEFAULT_BATCH_N)
+
+
 def eval_method_with_config(eval_config, method_name, datasets, metrics,
                             device, timings):
+    from evreal_tpu_torch.harness.batched import eval_method_on_sequence_group
+
     num_sequences = sum(len(d["sequences"]) for d in datasets)
     method_config = get_method_config(method_name)
     print(color_progress("Starting method " + method_name))
@@ -434,18 +617,24 @@ def eval_method_with_config(eval_config, method_name, datasets, metrics,
     for dataset in datasets:
         dataset_metrics = MetricTracker()
         try:
-            for sequence in dataset["sequences"]:
-                print(color_progress(
-                    f"Evaluating {method_name} method with "
-                    f"{eval_config['name']} evaluation config on "
-                    f"{sequence['name']} sequence from {dataset['name']} "
-                    f"dataset. ({seq_no}/{num_sequences} for this method "
-                    f"and config)"))
-                seq_no += 1
-                result = eval_method_on_sequence(
-                    dataset["name"], eval_config, method_name, bundle,
-                    method_config, sequence, metrics, timings)
-                accumulate_mean_scores(dataset_metrics, [result])
+            for group in sequence_groups(eval_config, dataset["sequences"]):
+                for sequence in group:
+                    print(color_progress(
+                        f"Evaluating {method_name} method with "
+                        f"{eval_config['name']} evaluation config on "
+                        f"{sequence['name']} sequence from {dataset['name']} "
+                        f"dataset. ({seq_no}/{num_sequences} for this method "
+                        f"and config)"))
+                    seq_no += 1
+                if len(group) > 1:
+                    results = eval_method_on_sequence_group(
+                        dataset["name"], eval_config, method_name, bundle,
+                        method_config, group, metrics, timings)
+                else:
+                    results = [eval_method_on_sequence(
+                        dataset["name"], eval_config, method_name, bundle,
+                        method_config, group[0], metrics, timings)]
+                accumulate_mean_scores(dataset_metrics, results)
         except Exception as e:  # noqa: BLE001 — containment, eval.py:369-375
             print(color_error(f"Exception while evaluating method "
                               f"{method_name} on {dataset['name']} dataset:"))
@@ -463,6 +652,9 @@ def evaluate(method_names, eval_config_names=None, dataset_names=None,
     ms/frame samples go to ``timings`` (a ``TimingLog``) when given.
     Returns {eval config name: per-method lists of dataset trackers}."""
     device = resolve_device(device)
+    # a malformed EVREAL_WIRE fails here, not inside the per-dataset
+    # containment (evreal_tpu/harness/runner.py:1255-1260)
+    wire_format()
     eval_config_names = eval_config_names or ["std"]
     dataset_names = dataset_names or ["ECD", "MVSEC", "HQF"]
     metrics = metrics or DEFAULT_METRICS

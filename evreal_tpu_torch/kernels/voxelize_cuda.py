@@ -1,9 +1,9 @@
 """Wrapper of the hand-written CUDA voxelizer (``csrc/voxelize.cu``).
 
 The kernel replaces the Pallas TPU kernels of
-``evreal_tpu/kernels/voxelize_pallas.py`` (``_kernel`` and the f32 variant
+``evreal_tpu/kernels/voxelize_pallas.py`` (``_kernel`` and both precisions
 of ``_batched_kernel``); the source file's header says what bounds it on
-the card and how the design meets that.
+the card, how the design meets that, and why its sums are deterministic.
 
 The library is built with ``nvcc`` into ``build/evreal_tpu_torch/`` at the
 repository root at first use, keyed by a hash of the source and the flags,
@@ -38,10 +38,14 @@ _COORD_TYPES = {torch.int16: 0, torch.uint8: 1, torch.int32: 2,
 _TS_TYPES = {torch.float32: 0, torch.uint16: 1}
 _POL_TYPES = {torch.int8: 0, torch.float32: 1}
 _U16_TS_SCALE = 65535.0  # the compact wire's scale (data/packing.py)
+# K2's two precisions (voxelize_pallas_windows.supported_precisions):
+# "default" rounds each deposit weight to bf16 before the f32 accumulation
+PRECISIONS = ("highest", "default")
 
-# Launches of the kernel since the last reset (set to 0 to reset). Only
-# the launch site below adds to it.
+# Launches of the kernel since the last reset (set to 0 to reset), in all
+# and by precision. Only the launch sites below add to them.
 launches = 0
+launches_by_precision = dict.fromkeys(PRECISIONS, 0)
 _lib = None
 
 
@@ -90,38 +94,98 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build()["path"])
-        fn = lib.evreal_voxelize_windows
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.evreal_cuda_error_string.argtypes = [ctypes.c_int]
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.evreal_voxelize_windows.argtypes = (
+            [ptr] * 7 + [i32] * 9 + [ctypes.c_float, ptr])
+        lib.evreal_voxelize_windows.restype = i32
+        lib.evreal_voxelize_compact4.argtypes = (
+            [ptr] * 4 + [i32] * 8 + [ctypes.c_float, ptr])
+        lib.evreal_voxelize_compact4.restype = i32
+        lib.evreal_cuda_error_string.argtypes = [i32]
         lib.evreal_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def _check(xs, ys, ts, ps, count):
-    if xs.device.type != "cuda":
+def check_precision(precision):
+    """``None`` (HIGHEST) or a name in ``PRECISIONS`` -> whether the
+    deposits take bf16 factors. Raises for any other value."""
+    if precision is None or precision == "highest":
+        return False
+    if precision == "default":
+        return True
+    raise ValueError(f"voxelize: precision {precision!r} not supported "
+                     f"(supported: {', '.join(PRECISIONS)})")
+
+
+def _check(named, count):
+    """Device, contiguity and ``(T, E)`` shapes of the event buffers
+    ``named`` ({name: tensor}) and the ``(T,)`` int32 ``count``."""
+    first_name, first = next(iter(named.items()))
+    if first.device.type != "cuda":
         raise ValueError(f"voxelize (CUDA): tensors must lie on a CUDA "
-                         f"device, got {xs.device}")
-    named = {"xs": xs, "ys": ys, "ts": ts, "ps": ps, "count": count}
-    for name, a in named.items():
-        if a.device != xs.device:
+                         f"device, got {first.device}")
+    for name, a in {**named, "count": count}.items():
+        if a.device != first.device:
             raise ValueError(f"voxelize (CUDA): {name} on {a.device}, "
-                             f"xs on {xs.device}")
+                             f"{first_name} on {first.device}")
         if not a.is_contiguous():
             raise ValueError(f"voxelize (CUDA): {name} is not contiguous")
-    if xs.dim() != 2:
-        raise ValueError(f"voxelize (CUDA): xs must be (T, E), got "
-                         f"{tuple(xs.shape)}")
-    for name in ("ys", "ts", "ps"):
-        if named[name].shape != xs.shape:
+    if first.dim() != 2:
+        raise ValueError(f"voxelize (CUDA): {first_name} must be (T, E), got "
+                         f"{tuple(first.shape)}")
+    for name, a in named.items():
+        if a.shape != first.shape:
             raise ValueError(f"voxelize (CUDA): {name} shape "
-                             f"{tuple(named[name].shape)} != xs shape "
-                             f"{tuple(xs.shape)}")
-    if count.shape != xs.shape[:1] or count.dtype != torch.int32:
-        raise ValueError(f"voxelize (CUDA): count must be ({xs.shape[0]},) "
-                         f"int32, got {tuple(count.shape)} {count.dtype}")
+                             f"{tuple(a.shape)} != {first_name} shape "
+                             f"{tuple(first.shape)}")
+    if count.shape != first.shape[:1] or count.dtype != torch.int32:
+        raise ValueError(f"voxelize (CUDA): count must be "
+                         f"({first.shape[0]},) int32, got "
+                         f"{tuple(count.shape)} {count.dtype}")
+
+
+def _outputs(first, num_bins, hw):
+    """The f32 output and the zero-filled int64 fixed-point scratch."""
+    t_n, e = first.shape
+    if t_n > 65535:
+        raise ValueError(f"voxelize (CUDA): T={t_n} exceeds the grid's "
+                         f"y limit 65535")
+    shape = (t_n, num_bins) + tuple(hw)
+    return (torch.empty(shape, dtype=torch.float32, device=first.device),
+            torch.zeros(shape, dtype=torch.int64, device=first.device))
+
+
+def reset_launches():
+    global launches
+    launches = 0
+    for k in launches_by_precision:
+        launches_by_precision[k] = 0
+
+
+def _launched(lib, err, bf16):
+    global launches
+    if err != 0:
+        msg = (lib.evreal_cuda_error_string(err).decode() if err > 0
+               else "unknown type code or wire layout")
+        raise RuntimeError(f"voxelize (CUDA): launch failed: {msg} ({err})")
+    launches += 1
+    launches_by_precision[PRECISIONS[int(bf16)]] += 1
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def voxelize(xs, ys, ts, ps, count, num_bins, hw, precision=None):
+    """``(T, E)`` event buffers on a CUDA device plus ``(T,)`` int32
+    ``count`` -> ``(T, num_bins, H, W)`` f32, in one kernel launch on the
+    current stream. ``precision``: ``None``/"highest" (f32 weights) or
+    "default" (bf16 factors). Zero capacity returns zeros without a
+    launch."""
+    bf16 = check_precision(precision)
+    named = {"xs": xs, "ys": ys, "ts": ts, "ps": ps}
+    _check(named, count)
     if ys.dtype != xs.dtype:
         raise ValueError(f"voxelize (CUDA): xs {xs.dtype} != ys {ys.dtype}")
     for name, a, table in (("xs", xs, _COORD_TYPES), ("ts", ts, _TS_TYPES),
@@ -129,35 +193,47 @@ def _check(xs, ys, ts, ps, count):
         if a.dtype not in table:
             raise ValueError(f"voxelize (CUDA): {name} dtype {a.dtype} not "
                              f"in {sorted(str(d) for d in table)}")
-
-
-def voxelize(xs, ys, ts, ps, count, num_bins, hw):
-    """``(T, E)`` event buffers on a CUDA device plus ``(T,)`` int32
-    ``count`` -> ``(T, num_bins, H, W)`` f32, in one kernel launch on the
-    current stream. Zero capacity returns zeros without a launch."""
-    global launches
     h, w = hw
-    _check(xs, ys, ts, ps, count)
     t_n, e = xs.shape
-    out = torch.zeros((t_n, num_bins, h, w), dtype=torch.float32,
-                      device=xs.device)
     if e == 0 or t_n == 0:
-        return out
-    if t_n > 65535:
-        raise ValueError(f"voxelize (CUDA): T={t_n} exceeds the grid's "
-                         f"y limit 65535")
+        return torch.zeros((t_n, num_bins, h, w), dtype=torch.float32,
+                           device=xs.device)
+    out, acc = _outputs(xs, num_bins, hw)
     lib = _load()
     scale = float((num_bins - 1) / _U16_TS_SCALE)  # rounded to f32 by ctypes
     with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = lib.evreal_voxelize_windows(
             xs.data_ptr(), ys.data_ptr(), ts.data_ptr(), ps.data_ptr(),
-            count.data_ptr(), out.data_ptr(), t_n, e, num_bins, h, w,
-            _COORD_TYPES[xs.dtype], _TS_TYPES[ts.dtype], _POL_TYPES[ps.dtype],
-            scale, stream)
-    if err != 0:
-        msg = (lib.evreal_cuda_error_string(err).decode() if err > 0
-               else "unknown type code")
-        raise RuntimeError(f"voxelize (CUDA): launch failed: {msg} ({err})")
-    launches += 1
+            count.data_ptr(), acc.data_ptr(), out.data_ptr(), t_n, e,
+            num_bins, h, w, _COORD_TYPES[xs.dtype], _TS_TYPES[ts.dtype],
+            _POL_TYPES[ps.dtype], int(bf16), scale, _stream(xs.device))
+    _launched(lib, err, bf16)
+    return out
+
+
+def voxelize_compact4(ev, count, num_bins, hw, layout, precision=None):
+    """The packed compact4 wire: ``(T, E)`` uint32 words (``int32`` views
+    are taken as the same bits) plus ``count`` -> ``(T, num_bins, H, W)``
+    f32, decoded in the kernel. ``layout`` is ``(idx_bits, ts_bits)`` from
+    ``data.packing.compact4_layout``."""
+    bf16 = check_precision(precision)
+    if ev.dtype not in (torch.uint32, torch.int32):
+        raise ValueError(f"voxelize (CUDA): ev dtype {ev.dtype} is not "
+                         f"uint32")
+    _check({"ev": ev}, count)
+    h, w = hw
+    t_n, e = ev.shape
+    if e == 0 or t_n == 0:
+        return torch.zeros((t_n, num_bins, h, w), dtype=torch.float32,
+                           device=ev.device)
+    idx_bits, ts_bits = layout
+    out, acc = _outputs(ev, num_bins, hw)
+    lib = _load()
+    scale = float((num_bins - 1) / _U16_TS_SCALE)
+    with torch.cuda.device(ev.device):
+        err = lib.evreal_voxelize_compact4(
+            ev.data_ptr(), count.data_ptr(), acc.data_ptr(), out.data_ptr(),
+            t_n, e, num_bins, h, w, idx_bits, ts_bits, int(bf16), scale,
+            _stream(ev.device))
+    _launched(lib, err, bf16)
     return out

@@ -18,10 +18,17 @@ Events sit in fixed-capacity ``(T, E)`` buffers with a per-window
 nothing, and an unsorted timestamp with ``t_norm <= -1`` deposits nothing
 either (the ``lo + 1 >= 0`` guard).
 
-``voxelize_windows`` is the entry the runner calls. On CPU tensors it runs
-the plain PyTorch version here (``index_add_``, f32 operations in the JAX
-package's order); on CUDA tensors it launches the hand-written kernel
-``kernels/csrc/voxelize.cu`` or raises.
+Two precisions, K2's (``evreal_tpu/kernels/voxelize_pallas.py``):
+``"highest"`` (the default) deposits the f32 weights; ``"default"`` rounds
+each weight to bf16 (round to nearest even) before the f32 accumulation,
+the bf16 serving mode's choice (``harness/runner.py:voxel_precision_choice``).
+
+``voxelize_windows`` is the entry the runner calls, on a wire buffer dict
+(``{xs, ys, ts, ps, count}`` or the packed ``{ev, count}``). On CPU
+tensors it runs the plain PyTorch version here (``index_add_``, f32
+operations in the JAX package's order); on CUDA tensors it launches the
+hand-written kernel ``kernels/csrc/voxelize.cu``, which reads every wire
+(compact4 included) itself, or raises.
 """
 
 import torch
@@ -70,11 +77,12 @@ def t_norm(ts, count, num_bins):
     return torch.where(dt < 1e-9, t_deg, t_reg)
 
 
-def event_deposits(xs, ys, ts, ps, count, num_bins, hw):
+def event_deposits(xs, ys, ts, ps, count, num_bins, hw, bf16_factors=False):
     """Per-event prep: the flat output indices of the two deposits of each
     event and their weights, for the valid ones only. Returns
     ``(index, weight)`` over ``(T * num_bins * H * W,)``, lo deposits
-    first, then hi deposits, each in event order."""
+    first, then hi deposits, each in event order. ``bf16_factors`` rounds
+    each weight to bf16 (round to nearest even) and back to f32."""
     h, w = hw
     t, e = xs.shape
     dev = xs.device
@@ -90,6 +98,9 @@ def event_deposits(xs, ys, ts, ps, count, num_bins, hw):
     p = ps.to(_F32)
     w_lo = p * (1.0 - frac)
     w_hi = p * frac
+    if bf16_factors:
+        w_lo = w_lo.to(torch.bfloat16).to(_F32)
+        w_hi = w_hi.to(torch.bfloat16).to(_F32)
     ok_lo = inb & (lo >= 0) & (lo < num_bins)
     ok_hi = inb & (lo + 1 >= 0) & (lo + 1 < num_bins)
 
@@ -103,19 +114,33 @@ def event_deposits(xs, ys, ts, ps, count, num_bins, hw):
 
 
 def voxelize_windows_plain(xs, ys, ts, ps, count, num_bins, hw,
-                           accum_dtype=_F32):
+                           accum_dtype=_F32, bf16_factors=False):
     """Plain PyTorch voxelizer: ``(T, E)`` buffers -> ``(T, B, H, W)`` f32.
     ``accum_dtype=torch.float64`` sums the (f32) deposits in float64 before
     the final cast, which makes the result independent of the summation
-    order to f32 rounding (CUDA ``index_add_`` itself uses atomics)."""
+    order to f32 rounding (CUDA ``index_add_`` itself uses atomics).
+    ``bf16_factors`` is the "default" precision (``event_deposits``)."""
     h, w = hw
     t, e = xs.shape
     out = torch.zeros(t * num_bins * h * w, dtype=accum_dtype,
                       device=xs.device)
     if e:  # zero capacity: nothing to read (ts[:, 0] does not exist)
-        idx, wgt = event_deposits(xs, ys, ts, ps, count, num_bins, hw)
+        idx, wgt = event_deposits(xs, ys, ts, ps, count, num_bins, hw,
+                                  bf16_factors)
         out.index_add_(0, idx, wgt.to(accum_dtype))
     return out.view(t, num_bins, h, w).to(_F32)
+
+
+def voxelize_buffers_plain(bufs, num_bins, hw, accum_dtype=_F32,
+                           bf16_factors=False):
+    """``voxelize_windows_plain`` of a wire buffer dict; the compact4 wire
+    is decoded first (``decode_compact4``)."""
+    if "ev" in bufs:
+        xs, ys, ts, ps = decode_compact4(bufs["ev"], hw)
+    else:
+        xs, ys, ts, ps = bufs["xs"], bufs["ys"], bufs["ts"], bufs["ps"]
+    return voxelize_windows_plain(xs, ys, ts, ps, bufs["count"], num_bins,
+                                  hw, accum_dtype, bf16_factors)
 
 
 def voxelize_scatter(xs, ys, ts, ps, count, num_bins, sensor_size):
@@ -126,12 +151,28 @@ def voxelize_scatter(xs, ys, ts, ps, count, num_bins, sensor_size):
                                   sensor_size)[0]
 
 
-def voxelize_windows(xs, ys, ts, ps, count, num_bins, hw):
-    """Voxelize a chunk of T windows: ``(T, E)`` buffers plus ``(T,)``
-    int32 ``count`` -> ``(T, num_bins, H, W)`` f32. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (one launch per call)."""
-    if xs.device.type == "cpu":
-        return voxelize_windows_plain(xs, ys, ts, ps, count, num_bins, hw)
-    if xs.device.type == "cuda":
-        return voxelize_cuda.voxelize(xs, ys, ts, ps, count, num_bins, hw)
-    raise ValueError(f"voxelize_windows: unsupported device {xs.device}")
+def voxelize_windows(bufs, num_bins, hw, precision=None):
+    """Voxelize a chunk of T windows in one launch: a wire buffer dict of
+    ``(T, E)`` event buffers (``{xs, ys, ts, ps, count}`` or the packed
+    ``{ev, count}``, ``count`` a ``(T,)`` int32) -> ``(T, num_bins, H, W)``
+    f32. ``precision``: ``None``/"highest" or "default" (bf16 factors);
+    anything else raises. CPU tensors take the plain version; CUDA tensors
+    launch the kernel (one launch per call, compact4 decoded in the
+    kernel)."""
+    bf16 = voxelize_cuda.check_precision(precision)
+    dev = bufs["ev" if "ev" in bufs else "xs"].device
+    if dev.type == "cpu":
+        return voxelize_buffers_plain(bufs, num_bins, hw, bf16_factors=bf16)
+    if dev.type != "cuda":
+        raise ValueError(f"voxelize_windows: unsupported device {dev}")
+    if "ev" in bufs:
+        return voxelize_cuda.voxelize_compact4(
+            bufs["ev"], bufs["count"], num_bins, hw, compact4_layout(hw),
+            precision)
+    return voxelize_cuda.voxelize(
+        *(bufs[k] for k in ("xs", "ys", "ts", "ps", "count")), num_bins, hw,
+        precision)
+
+
+# the precisions K2 takes (voxelize_pallas_windows.supported_precisions)
+voxelize_windows.supported_precisions = voxelize_cuda.PRECISIONS

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from evreal_tpu_torch.data.packing import quantize_ts
+from evreal_tpu_torch.data.packing import encode_compact4, quantize_ts
 from evreal_tpu_torch.kernels import voxelize_cuda
 from evreal_tpu_torch.ops import voxelize as tvox
 
@@ -73,7 +73,8 @@ def wires():
 def test_kernel_matches_plain(cuda_device, wire):
     args = on(cuda_device, *wires()[wire])
     before = voxelize_cuda.launches
-    got = tvox.voxelize_windows(*args, B, (H, W))
+    got = tvox.voxelize_windows(
+        dict(zip(("xs", "ys", "ts", "ps", "count"), args)), B, (H, W))
     want = tvox.voxelize_windows_plain(*args, B, (H, W),
                                        accum_dtype=torch.float64)
     torch.cuda.synchronize()
@@ -102,3 +103,56 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         voxelize_cuda.voxelize(xs, ys, ts.double(), ps, count, B, (H, W))
     with pytest.raises(ValueError, match="count"):
         voxelize_cuda.voxelize(xs, ys, ts, ps, count.long(), B, (H, W))
+
+
+def compact4(xs, ys, ts, ps, count):
+    ev = np.zeros(ts.shape, np.uint32)
+    for i, n in enumerate(count):
+        ev[i, :n] = encode_compact4(xs[i, :n], ys[i, :n], ts[i, :n],
+                                    ps[i, :n], (H, W))
+    return ev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["int16 / f32 / int8", "compact4"])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_precisions_and_compact4_match_plain(cuda_device, wire, precision):
+    """K2-HIGHEST and K2-DEFAULT (bf16 factors) on the split f32 wire and
+    on compact4 decoded in the kernel, against the plain version (bf16
+    factors where asked, float64 accumulation) on the same tensors."""
+    args = wires()["int16 / f32 / int8"]
+    if wire == "compact4":
+        bufs = dict(zip(("ev", "count"),
+                        on(cuda_device, compact4(*args), args[4])))
+    else:
+        bufs = dict(zip(("xs", "ys", "ts", "ps", "count"),
+                        on(cuda_device, *args)))
+    before = voxelize_cuda.launches
+    got = tvox.voxelize_windows(bufs, B, (H, W), precision=precision)
+    want = tvox.voxelize_buffers_plain(bufs, B, (H, W),
+                                       accum_dtype=torch.float64,
+                                       bf16_factors=precision == "default")
+    torch.cuda.synchronize()
+    assert voxelize_cuda.launches == before + 1
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_deterministic_across_launches_and_groupings(cuda_device,
+                                                     precision):
+    """The same inputs give the same bits on every launch, and a window's
+    grid does not depend on which windows share its launch."""
+    args = windows(4, t=32, e=8192)
+    for bufs in (dict(zip(("xs", "ys", "ts", "ps", "count"),
+                          on(cuda_device, *args))),
+                 dict(zip(("ev", "count"),
+                          on(cuda_device, compact4(*args), args[4])))):
+        def vox(sl):
+            return tvox.voxelize_windows({k: v[sl].contiguous()
+                                          for k, v in bufs.items()},
+                                         B, (H, W), precision=precision)
+        whole = vox(slice(0, 32))
+        assert torch.equal(whole, vox(slice(0, 32)))
+        halves = torch.cat([vox(slice(0, 16)), vox(slice(16, 32))])
+        assert torch.equal(whole, halves)

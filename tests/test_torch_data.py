@@ -70,3 +70,55 @@ def test_capacity_helpers_match():
             for w in ("f32", "compact", "compact4"):
                 assert tpack.wire_dtypes(w, coords, res) == \
                     jpack.wire_dtypes(w, coords, res)
+
+
+@pytest.mark.parametrize("env", [None, "f32", "compact", "compact4", "zstd",
+                                 "F32", ""])
+def test_wire_format_parses_like_jax(env, monkeypatch):
+    """``EVREAL_WIRE`` in {f32, compact, compact4}, default f32, anything
+    else a ValueError (tests/test_wire_compact.py:43-52)."""
+    if env is None:
+        monkeypatch.delenv("EVREAL_WIRE", raising=False)
+    else:
+        monkeypatch.setenv("EVREAL_WIRE", env)
+    try:
+        want = jpack.wire_format()
+    except ValueError as exc:
+        with pytest.raises(ValueError) as got:
+            tpack.wire_format()
+        assert str(got.value) == str(exc)
+        return
+    assert tpack.wire_format() == want == (env or "f32")
+
+
+@pytest.fixture(scope="module")
+def big_sensor_dir(tmp_path_factory):
+    """An events-only sequence on a sensor too large for compact4's index
+    (3000 x 3000: 24 index bits leave 7 timestamp bits < 12)."""
+    d = tmp_path_factory.mktemp("big") / "seq"
+    d.mkdir()
+    rng = np.random.default_rng(4)
+    n = 5000
+    np.save(d / "events_ts.npy", np.sort(rng.uniform(0, 1.0, n)))
+    np.save(d / "events_xy.npy", np.stack(
+        [rng.integers(-5, 3005, n), rng.integers(-5, 3005, n)],
+        1).astype(np.int16))
+    np.save(d / "events_p.npy", rng.integers(0, 2, n).astype(np.uint8))
+    (d / "metadata.json").write_text('{"sensor_resolution": [3000, 3000]}')
+    return str(d)
+
+
+@pytest.mark.parametrize("wire", ["compact", "compact4"])
+def test_compact4_falls_back_to_compact_per_sensor(big_sensor_dir, wire):
+    vm = {"method": "k_events", "k": 700, "sliding_window_w": 0}
+    t = Sequence(big_sensor_dir, voxel_method=vm)
+    j = JSequence(big_sensor_dir, voxel_method=vm)
+    assert tpack.compact4_layout(t.sensor_resolution) is None
+    idx = list(range(len(t)))
+    got, _ = tpack.pack_windows(t, idx, wire=wire)
+    want, _ = jpack.pack_windows(j, idx, wire=wire)
+    assert sorted(got) == sorted(want) == ["count", "ps", "ts", "xs", "ys"]
+    assert got["ts"].dtype == np.uint16 and got["xs"].dtype == np.int16
+    for k in got:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k])

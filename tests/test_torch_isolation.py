@@ -30,7 +30,8 @@ def test_port_imports_no_jax_and_no_evreal_tpu():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
-    assert {"evreal_tpu_torch.harness.runner", "evreal_tpu_torch.cli",
+    assert {"evreal_tpu_torch.harness.runner",
+            "evreal_tpu_torch.harness.batched", "evreal_tpu_torch.cli",
             "evreal_tpu_torch.kernels.voxelize_cuda",
             "evreal_tpu_torch.ops.voxelize",
             "evreal_tpu_torch.__main__"} <= set(report["modules"])

@@ -64,8 +64,13 @@ def port(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
+def split(*arrays):
+    """The split wire's buffer dict of numpy ``(xs, ys, ts, ps, count)``."""
+    return dict(zip(("xs", "ys", "ts", "ps", "count"), port(*arrays)))
+
+
 def port_windows(xs, ys, ts, ps, count, num_bins=B, hw=(H, W)):
-    return tvox.voxelize_windows(*port(xs, ys, ts, ps, count), num_bins,
+    return tvox.voxelize_windows(split(xs, ys, ts, ps, count), num_bins,
                                  hw).numpy()
 
 
@@ -98,8 +103,9 @@ def test_decode_compact4_matches_jax_incl_sentinel():
     want = decode_compact4(ev, (H, W))
     for g, w_ in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
-    vox = tvox.voxelize_windows(*got, torch.from_numpy(count), B,
-                                (H, W)).numpy()
+    bufs = dict(zip(("xs", "ys", "ts", "ps"), got))
+    vox = tvox.voxelize_windows({**bufs, "count": torch.from_numpy(count)},
+                                B, (H, W)).numpy()
     jx, jy, jt, jp = (np.asarray(a) for a in want)
     np.testing.assert_allclose(vox, jax_windows(jx, jy, jt, jp, count),
                                atol=ATOL)
@@ -107,7 +113,7 @@ def test_decode_compact4_matches_jax_incl_sentinel():
 
 def test_zero_capacity_and_zero_count():
     z = np.zeros((3, 0), np.float32)
-    out = tvox.voxelize_windows(*port(z, z, z, z, np.zeros(3, np.int32)), B,
+    out = tvox.voxelize_windows(split(z, z, z, z, np.zeros(3, np.int32)), B,
                                 (H, W))
     assert out.shape == (3, B, H, W) and not out.any()
     single = tvox.voxelize_scatter(*port(*(np.zeros(0, np.float32),) * 4),
@@ -152,3 +158,74 @@ def test_cuda_wrapper_never_falls_back_to_cpu():
     args = port(*windows(8, 2, 64))
     with pytest.raises(ValueError, match="CUDA device"):
         voxelize_cuda.voxelize(*args, B, (H, W))
+
+
+# ---------------------------------------------------------------------------
+# K2-DEFAULT (bf16 factors) and the compact wires
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("coords", ["int16", "float"])
+def test_bf16_factors_match_pallas_k2_default(coords):
+    """The plain bf16-factor voxelizer against K2 at DEFAULT precision in
+    interpret mode: T not a multiple of K2's 8-window tile, count 0 and E,
+    a degenerate dt, an unsorted timestamp, out-of-bounds coordinates."""
+    args = windows(9, 11, 1024, coords)
+    want = np.asarray(voxelize_pallas_windows(
+        *args, B, (H, W), interpret=True,
+        precision=jax.lax.Precision.DEFAULT))
+    got = tvox.voxelize_windows(split(*args), B, (H, W),
+                                precision="default").numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    # the rounding happened: HIGHEST differs from DEFAULT
+    assert np.abs(port_windows(*args) - got).max() > 0
+
+
+def test_unsupported_precision_raises():
+    bufs = split(*windows(10, 2, 64))
+    for bad in ("high", jax.lax.Precision.DEFAULT, "bf16"):
+        with pytest.raises(ValueError, match="not supported"):
+            tvox.voxelize_windows(bufs, B, (H, W), precision=bad)
+    assert tvox.voxelize_windows.supported_precisions == \
+        voxelize_pallas_windows.supported_precisions
+
+
+def compact_wires(xs, ys, ts, ps, count):
+    """The compact (uint16 ts, uint8 coords) and compact4 (packed u32)
+    buffer dicts of the same windows, as the packer writes them."""
+    q = np.zeros(ts.shape, np.uint16)
+    ev = np.zeros(ts.shape, np.uint32)
+    for i, n in enumerate(count):
+        q[i, :n] = quantize_ts(ts[i, :n], 65535.0).astype(np.uint16)
+        ev[i, :n] = encode_compact4(xs[i, :n], ys[i, :n], ts[i, :n],
+                                    ps[i, :n], (H, W))
+    u8 = lambda a: np.where((a >= 0) & (a < 256), a, 255).astype(np.uint8)  # noqa: E731
+    return {"compact": {"xs": u8(xs), "ys": u8(ys), "ts": q, "ps": ps,
+                        "count": count},
+            "compact4": {"ev": ev, "count": count}}
+
+
+@pytest.mark.parametrize("wire", ["compact", "compact4"])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_compact_wires_match_jax_voxel_stage(wire, precision):
+    """The buffer dict through ``voxelize_windows`` against the JAX
+    package's voxel stage on the same buffers (its scatter voxelizer, f32
+    weights; DEFAULT against K2 in interpret mode)."""
+    from evreal_tpu.harness.runner import make_voxel_stage
+
+    bufs = compact_wires(*windows(11, 9, 768))[wire]
+    if precision == "highest":
+        stage = make_voxel_stage(voxelize_scatter, B, (H, W), False)
+        want = np.asarray(stage(bufs)).transpose(0, 3, 1, 2)
+    else:
+        if wire == "compact4":
+            jx, jy, jt, jp = decode_compact4(bufs["ev"], (H, W))
+        else:
+            jx, jy, jt, jp = (bufs[k] for k in ("xs", "ys", "ts", "ps"))
+        want = np.asarray(voxelize_pallas_windows(
+            jx, jy, jt, jp, bufs["count"], B, (H, W), interpret=True,
+            precision=jax.lax.Precision.DEFAULT))
+    got = tvox.voxelize_windows({k: torch.from_numpy(v)
+                                 for k, v in bufs.items()}, B, (H, W),
+                                precision=precision).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
