@@ -109,12 +109,13 @@ def precision_ctx(dtype):
         else contextlib.nullcontext()
 
 
-def voxel_precision_choice(supported, dtype):
+def voxel_precision_choice(dtype):
     """Binning precision of the voxelizer: the validated
     ``EVREAL_VOXEL_PRECISION`` override, else "default" (bf16 factors) for
-    bf16 stages, else None (the voxelizer's own default, HIGHEST).
-    ``supported`` is the precision names the voxelizer can honor; a pin it
-    cannot honor is an operator error, not a silent no-op."""
+    bf16 stages, else None (the voxelizer's own default, HIGHEST). A pin
+    the voxelizer cannot honor (``voxelize_windows.supported_precisions``)
+    is an operator error, not a silent no-op."""
+    supported = voxelize_windows.supported_precisions
     choice = os.environ.get("EVREAL_VOXEL_PRECISION")
     if choice is not None:
         if choice not in ("highest", "high", "default"):
@@ -122,11 +123,10 @@ def voxel_precision_choice(supported, dtype):
                              "expected highest|high|default")
         if choice not in supported:
             raise ValueError(
-                f"EVREAL_VOXEL_PRECISION={choice!r}: the selected "
-                f"EVREAL_VOXELIZE impl cannot honor it (supports: "
-                f"{', '.join(supported) or 'none'})")
+                f"EVREAL_VOXEL_PRECISION={choice!r}: the voxelizer cannot "
+                f"honor it (supports: {', '.join(supported)})")
         return choice
-    if "default" in supported and dtype == torch.bfloat16:
+    if dtype == torch.bfloat16:
         return "default"
     return None
 
@@ -136,8 +136,7 @@ def make_voxel_stage(num_bins, hw, event_norm, out_dtype=torch.float32):
     ``out_dtype``: one ``voxelize_windows`` launch (binning in f32), the
     event norm in f32, then the cast to the serving dtype — after the norm
     and before the pad, as ``make_voxel_stage`` does in the JAX package."""
-    precision = voxel_precision_choice(voxelize_windows.supported_precisions,
-                                       out_dtype)
+    precision = voxel_precision_choice(out_dtype)
 
     def stage(bufs):
         vox = voxelize_windows(bufs, num_bins, hw, precision=precision)

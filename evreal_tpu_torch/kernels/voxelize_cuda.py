@@ -42,9 +42,9 @@ _U16_TS_SCALE = 65535.0  # the compact wire's scale (data/packing.py)
 # "default" rounds each deposit weight to bf16 before the f32 accumulation
 PRECISIONS = ("highest", "default")
 
-# Launches of the kernel since the last reset (set to 0 to reset), in all
-# and by precision. Only the launch sites below add to them.
-launches = 0
+# Calls that launched the kernel since the last reset, by precision (one
+# call = the deposit kernel and the conversion kernel). Only the launch
+# sites below add to them; ``launch_count()`` is their sum.
 launches_by_precision = dict.fromkeys(PRECISIONS, 0)
 _lib = None
 
@@ -157,19 +157,19 @@ def _outputs(first, num_bins, hw):
 
 
 def reset_launches():
-    global launches
-    launches = 0
     for k in launches_by_precision:
         launches_by_precision[k] = 0
 
 
+def launch_count():
+    return sum(launches_by_precision.values())
+
+
 def _launched(lib, err, bf16):
-    global launches
     if err != 0:
         msg = (lib.evreal_cuda_error_string(err).decode() if err > 0
                else "unknown type code or wire layout")
         raise RuntimeError(f"voxelize (CUDA): launch failed: {msg} ({err})")
-    launches += 1
     launches_by_precision[PRECISIONS[int(bf16)]] += 1
 
 
@@ -179,8 +179,9 @@ def _stream(device):
 
 def voxelize(xs, ys, ts, ps, count, num_bins, hw, precision=None):
     """``(T, E)`` event buffers on a CUDA device plus ``(T,)`` int32
-    ``count`` -> ``(T, num_bins, H, W)`` f32, in one kernel launch on the
-    current stream. ``precision``: ``None``/"highest" (f32 weights) or
+    ``count`` -> ``(T, num_bins, H, W)`` f32 on the current stream: the
+    int64 scratch's zero-fill, the deposit kernel and the conversion
+    kernel. ``precision``: ``None``/"highest" (f32 weights) or
     "default" (bf16 factors). Zero capacity returns zeros without a
     launch."""
     bf16 = check_precision(precision)

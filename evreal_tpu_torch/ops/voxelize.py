@@ -152,13 +152,13 @@ def voxelize_scatter(xs, ys, ts, ps, count, num_bins, sensor_size):
 
 
 def voxelize_windows(bufs, num_bins, hw, precision=None):
-    """Voxelize a chunk of T windows in one launch: a wire buffer dict of
+    """Voxelize a chunk of T windows in one call: a wire buffer dict of
     ``(T, E)`` event buffers (``{xs, ys, ts, ps, count}`` or the packed
     ``{ev, count}``, ``count`` a ``(T,)`` int32) -> ``(T, num_bins, H, W)``
     f32. ``precision``: ``None``/"highest" or "default" (bf16 factors);
     anything else raises. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (one launch per call, compact4 decoded in the
-    kernel)."""
+    launch the kernel (per call one deposit and one conversion kernel,
+    compact4 decoded in the deposit kernel)."""
     bf16 = voxelize_cuda.check_precision(precision)
     dev = bufs["ev" if "ev" in bufs else "xs"].device
     if dev.type == "cpu":

@@ -1,16 +1,18 @@
 """The port's bf16 serving mode (EVREAL_DTYPE=bfloat16) against the JAX
 package's (tests/test_bf16_mode.py is the template): raw reconstructions,
 before any post-norm, of narrow random-init E2VID and FireNet in bf16
-against the JAX package in bf16 and against the port in f32, within
-mean 0.02 and max 0.2 (tests/test_bf16_mode.py:39-40); the weights' bf16
-bits against ``cast_params``; the state and every activation staying bf16
-through a step; and the dtype / voxel-precision switches against the JAX
-package's parsing and errors.
+against the port in f32, within mean 0.02 and max 0.2
+(tests/test_bf16_mode.py:39-40), and against the JAX package in bf16 at a
+bound set from readings; the weights' bf16 bits against ``cast_params``;
+the state and every activation staying bf16 through a step; and the
+dtype / voxel-precision switches against the JAX package's parsing and
+errors.
 
 On the CPU the JAX package voxelizes with ``scatter`` and keeps f32 voxel
 factors, while the port follows the Pallas kernel's ``supported_precisions``
-and takes bf16 factors in bf16 mode: the two are held to the bf16 bounds
-above, not to 2e-5."""
+and takes bf16 factors in bf16 mode; the comparison with the JAX package's
+bf16 run pins the port to f32 factors (EVREAL_VOXEL_PRECISION=highest), so
+both sides see the same voxels and the same bf16 weights."""
 
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from evreal_tpu_torch.convert.params import flatten, from_jax_tree
 from evreal_tpu_torch.harness import runner as trunner
 from evreal_tpu_torch.models import build_from_meta
 from evreal_tpu_torch.models.init import init_e2vid, init_firenet
+from evreal_tpu_torch.ops import voxelize as tvox
 
 torch.set_num_threads(1)
 
@@ -87,23 +90,35 @@ def jax_raw(method):
     return np.asarray(imgs)
 
 
-def within_bf16_bounds(a, b):
+# Port bf16 against JAX bf16, the same weights and voxels: the outputs lie
+# in (0, 1), where one bf16 step is at most 2^-8. Readings on the CPU:
+# mean 7.3e-4 / max 3.9e-3 (E2VID), 1.1e-4 / 9.8e-4 (FireNet), one step
+# at the top of each output's range (XLA keeps f32 between fused
+# elementwise operations, PyTorch rounds after each); the bound is twice
+# the larger reading.
+JAX_BF16_MEAN, JAX_BF16_MAX = 1.5e-3, 2 ** -7
+
+
+def within(a, b, mean, max_):
     d = np.abs(a - b)
-    return d.mean() < 0.02 and d.max() < 0.2
+    return d.mean() < mean and d.max() < max_
 
 
 @pytest.mark.parametrize("method", sorted(METHODS))
 def test_bf16_tracks_jax_bf16_and_port_f32(method, monkeypatch):
+    monkeypatch.delenv("EVREAL_VOXEL_PRECISION", raising=False)
     monkeypatch.setenv("EVREAL_DTYPE", "float32")
     f32, _ = port_raw(method)
     monkeypatch.setenv("EVREAL_DTYPE", "bfloat16")
     bf16, _ = port_raw(method)
     jax_bf16 = jax_raw(method)
+    monkeypatch.setenv("EVREAL_VOXEL_PRECISION", "highest")
+    bf16_f32_voxels, _ = port_raw(method)
     assert f32.dtype == bf16.dtype == np.float32
     assert f32.shape == bf16.shape == jax_bf16.shape == (T, H, W)
     assert np.abs(f32 - bf16).max() > 0  # the bf16 mode really ran
-    assert within_bf16_bounds(bf16, f32)
-    assert within_bf16_bounds(bf16, jax_bf16)
+    assert within(bf16, f32, 0.02, 0.2)
+    assert within(bf16_f32_voxels, jax_bf16, JAX_BF16_MEAN, JAX_BF16_MAX)
 
 
 @pytest.mark.parametrize("method", sorted(METHODS))
@@ -182,26 +197,33 @@ def test_compute_dtype_parses_like_jax(env, monkeypatch):
 @pytest.mark.parametrize("bf16", [False, True])
 def test_voxel_precision_choice_like_jax(env, bf16, monkeypatch):
     """The port's voxelizer takes K2's precisions (highest, default): a
-    "high" pin cannot be honored and raises, as for the Pallas kernel."""
+    "high" pin cannot be honored and raises, as for the Pallas kernel. The
+    JAX package's message names its EVREAL_VOXELIZE impl, which the port
+    does not have; everything up to the reason is the same."""
     if env is None:
         monkeypatch.delenv("EVREAL_VOXEL_PRECISION", raising=False)
     else:
         monkeypatch.setenv("EVREAL_VOXEL_PRECISION", env)
     supported = ("highest", "default")
+    assert tvox.voxelize_windows.supported_precisions == supported
     jdt = jnp.bfloat16 if bf16 else jnp.float32
     tdt = torch.bfloat16 if bf16 else torch.float32
     try:
         want = jrunner.voxel_precision_choice(supported, jdt)
     except ValueError as exc:
         with pytest.raises(ValueError) as got:
-            trunner.voxel_precision_choice(supported, tdt)
-        assert str(got.value) == str(exc)
+            trunner.voxel_precision_choice(tdt)
+        assert str(got.value).split(":")[0] == str(exc).split(":")[0]
         if env == "high":
             assert "cannot honor" in str(exc)
+            assert "cannot honor it (supports: highest, default)" in str(
+                got.value)
             with pytest.raises(ValueError, match="cannot honor"):
                 trunner.make_voxel_stage(5, (H, W), False, tdt)
+        else:
+            assert str(got.value) == str(exc)
         return
-    assert trunner.voxel_precision_choice(supported, tdt) == want
+    assert trunner.voxel_precision_choice(tdt) == want
     assert want == (env or ("default" if bf16 else None))
 
 

@@ -72,13 +72,13 @@ def wires():
                                   "uint8 / uint16", "int32 / f32 ps"])
 def test_kernel_matches_plain(cuda_device, wire):
     args = on(cuda_device, *wires()[wire])
-    before = voxelize_cuda.launches
+    before = voxelize_cuda.launch_count()
     got = tvox.voxelize_windows(
         dict(zip(("xs", "ys", "ts", "ps", "count"), args)), B, (H, W))
     want = tvox.voxelize_windows_plain(*args, B, (H, W),
                                        accum_dtype=torch.float64)
     torch.cuda.synchronize()
-    assert voxelize_cuda.launches == before + 1
+    assert voxelize_cuda.launch_count() == before + 1
     assert got.shape == (8, B, H, W) and got.dtype == torch.float32
     assert float((got - want).abs().max()) <= ATOL
 
@@ -88,9 +88,9 @@ def test_zero_capacity_returns_zeros_without_launch(cuda_device):
     z = torch.zeros((4, 0), dtype=torch.int16, device=cuda_device)
     f = torch.zeros((4, 0), device=cuda_device)
     count = torch.zeros(4, dtype=torch.int32, device=cuda_device)
-    before = voxelize_cuda.launches
+    before = voxelize_cuda.launch_count()
     out = voxelize_cuda.voxelize(z, z, f, z.to(torch.int8), count, B, (H, W))
-    assert voxelize_cuda.launches == before and not bool(out.any())
+    assert voxelize_cuda.launch_count() == before and not bool(out.any())
 
 
 @pytest.mark.cuda
@@ -127,13 +127,13 @@ def test_precisions_and_compact4_match_plain(cuda_device, wire, precision):
     else:
         bufs = dict(zip(("xs", "ys", "ts", "ps", "count"),
                         on(cuda_device, *args)))
-    before = voxelize_cuda.launches
+    before = voxelize_cuda.launch_count()
     got = tvox.voxelize_windows(bufs, B, (H, W), precision=precision)
     want = tvox.voxelize_buffers_plain(bufs, B, (H, W),
                                        accum_dtype=torch.float64,
                                        bf16_factors=precision == "default")
     torch.cuda.synchronize()
-    assert voxelize_cuda.launches == before + 1
+    assert voxelize_cuda.launch_count() == before + 1
     assert float((got - want).abs().max()) <= ATOL
 
 
