@@ -9,17 +9,20 @@ Phases, each printing one JSON line:
    limit;
 2. build — builds the CUDA voxelizer from ``evreal_tpu_torch/kernels/csrc``
    and prints nvcc's ``-Xptxas -v`` report;
-3. kernel — runs the voxelizer at the single-sequence path's shape
-   (T = 32 windows, E = 32768 slots, 5 bins, 180 x 240) in both precisions
-   (HIGHEST: f32 weights; DEFAULT: bf16 factors) on every wire it takes,
-   compact4 decoded in the kernel, with edge cases (count 0 and E, a
+3. kernel — runs the voxelizer (count, scatter and accumulate kernels) at
+   the single-sequence path's shape (T = 32 windows, E = 32768 slots, 5
+   bins, 180 x 240) in both precisions (HIGHEST: f32 weights; DEFAULT: bf16
+   factors) on every wire it takes, compact4 decoded in the kernels, and on
+   grids that cross many tiles (625 x 970 on the f32 wire, 8 windows of
+   E = 131072; 260 x 346 on compact4), with edge cases (count 0 and E, a
    degenerate dt, out-of-bounds and fractional negative coordinates, an
    unsorted timestamp with t_norm <= -1, zero capacity), against its plain
-   PyTorch version run on the same CUDA tensors with float64 accumulation
-   (bf16 factors where asked): max abs err <= 2e-5. Checks determinism: two
-   launches on the same inputs, and one launch over 32 windows against two
-   over 16 + 16, are bit-identical. Times the kernel, the plain version and
-   ``index_add_`` (CUDA events, median of 25 after warm-up, L2 flushed);
+   PyTorch version run on the same CUDA tensors (bf16 factors where
+   asked): bit-equal to its int64 fixed-point sums, and within 2e-5 of its
+   float64 sums. Checks determinism: two launches on the same inputs, and
+   one launch over all windows against two over the halves, are
+   bit-identical. Times the kernels, the plain version and ``index_add_``
+   (CUDA events, median of 25 after warm-up, L2 flushed);
 4. main path (single sequence) — writes a synthetic 180 x 240 sequence (96
    windows of ~30k events, a moving blob) and random-init full-width E2VID
    weights (seed 0), runs the port's ``evaluate`` on ``cuda`` with
@@ -42,10 +45,11 @@ Phases, each printing one JSON line:
    1e-4, and bf16 against f32 raw reconstructions (before post-norm)
    within mean 0.02 / max 0.2. Holds both precisions at the lockstep
    launch's shape (512 windows, on its data: compact4 in bf16, the f32
-   wire in f32) against the plain version within 2e-5 and times them;
-   profile — one steady bf16 lockstep chunk, then a whole bf16 lockstep
-   ``evaluate`` traced on the device (busy against wall: the run's idle
-   share);
+   wire in f32) bit-equal to the int64 plain version and within 2e-5 of
+   the float64 one, and times them; profile — one steady bf16 lockstep
+   chunk, then a whole bf16 lockstep ``evaluate`` traced on the device
+   (busy against wall: the run's idle share); each profile names the
+   voxelizer's kernels with their times;
 6. the ``kernels`` line: per ported kernel its launches on its path, error
    and times beside its bound;
 
@@ -56,6 +60,7 @@ that line; without a CUDA device the script fails at once.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -70,6 +75,8 @@ TOL_SCORE = 1e-3   # mse / ssim rows, card vs CPU
 TOL_LOCKSTEP = 1e-4  # f32 lockstep vs single on the card (TF32 off)
 BF16_MEAN, BF16_MAX = 0.02, 0.2  # tests/test_bf16_mode.py:39-40
 ECD = dict(t=32, e=32768, h=180, w=240, b=5)
+MVSEC = (260, 346)
+BS_ERGB = (625, 970)  # tools/bs_ergb_to_npy.py:15-16
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM, f32 outside the tensor cores
 EVENTS_PER_WINDOW = 30000
@@ -195,6 +202,30 @@ def make_events(rng, t, e, h, w, float_coords=False):
     return xs, ys, ts, ps, count
 
 
+def hold_to_plain(torch, vox, bufs, num_bins, hw, prec, name):
+    """One launch against the plain version on the same tensors: bit-equal
+    to its int64 fixed-point sums (checked), within TOL_KERNEL of its
+    float64 sums (checked). Returns the max abs error against float64 and
+    the launch's output."""
+    bf16 = prec == "default"
+    got = vox.voxelize_windows(bufs, num_bins, hw, precision=prec)
+    exact = vox.voxelize_buffers_plain(bufs, num_bins, hw,
+                                       accum_dtype=torch.int64,
+                                       bf16_factors=bf16)
+    torch.cuda.synchronize()
+    check(torch.equal(got, exact), f"voxelizer {name} ({prec}): "
+          f"{int((got != exact).sum())} cells differ from the int64 plain "
+          f"version")
+    del exact
+    want = vox.voxelize_buffers_plain(bufs, num_bins, hw,
+                                      accum_dtype=torch.float64,
+                                      bf16_factors=bf16)
+    err = float((got - want).abs().max())
+    check(err <= TOL_KERNEL, f"voxelizer {name} ({prec}): max abs err "
+          f"{err} > {TOL_KERNEL}")
+    return err, got
+
+
 def phase_kernel(torch, vc, vox):
     c = ECD
     rng = np.random.default_rng(0)
@@ -205,67 +236,80 @@ def phase_kernel(torch, vc, vox):
         return {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for k, a in zip(keys, arrays)}
 
+    def packed(xs, ys, ts, ps, count, hw):
+        ev = np.zeros(ts.shape, np.uint32)
+        for i, n in enumerate(count):
+            ev[i, :n] = encode_compact4(xs[i, :n], ys[i, :n], ts[i, :n],
+                                        ps[i, :n], hw)
+        return cuda(("ev", "count"), ev, count)
+
     split = ("xs", "ys", "ts", "ps", "count")
-    xs, ys, ts, ps, count = make_events(rng, c["t"], c["e"], c["h"], c["w"])
-    cases = {"f32 wire": cuda(split, xs, ys, ts, ps, count)}
-    cases["f32 wire, fractional coords"] = cuda(
-        split, *make_events(rng, c["t"], c["e"], c["h"], c["w"],
-                            float_coords=True))
+    ecd = (c["h"], c["w"])
+    xs, ys, ts, ps, count = make_events(rng, c["t"], c["e"], *ecd)
+    cases = {"f32 wire": (cuda(split, xs, ys, ts, ps, count), ecd)}
+    cases["f32 wire, fractional coords"] = (cuda(
+        split, *make_events(rng, c["t"], c["e"], *ecd, float_coords=True)),
+        ecd)
     # compact (uint16 ts, uint8 coords at this sensor) and compact4 (packed
     # u32) encodings of the same windows
     q = np.zeros_like(ts, dtype=np.uint16)
-    ev = np.zeros(ts.shape, np.uint32)
-    for i in range(c["t"]):
-        n = int(count[i])
+    for i, n in enumerate(count):
         q[i, :n] = quantize_ts(ts[i, :n], 65535.0).astype(np.uint16)
-        ev[i, :n] = encode_compact4(xs[i, :n], ys[i, :n], ts[i, :n],
-                                    ps[i, :n], (c["h"], c["w"]))
     u8 = lambda a: np.where((a >= 0) & (a < 256), a, 255).astype(np.uint8)  # noqa: E731
-    cases["uint16 wire"] = cuda(split, u8(xs), u8(ys), q, ps, count)
-    cases["compact4 wire"] = cuda(("ev", "count"), ev, count)
+    cases["uint16 wire"] = (cuda(split, u8(xs), u8(ys), q, ps, count), ecd)
+    cases["compact4 wire"] = (packed(xs, ys, ts, ps, count, ecd), ecd)
+    # grids of many tiles: BS-ERGB on the f32 wire (no compact4 layout
+    # there), MVSEC/CED on compact4
+    for name, hw, t, e in (("f32 wire 625x970", BS_ERGB, 8, 131072),
+                           ("compact4 wire 260x346", MVSEC, 16, 32768)):
+        ev_args = make_events(rng, t, e, *hw)
+        cases[name] = ((cuda(split, *ev_args) if name.startswith("f32")
+                        else packed(*ev_args, hw)), hw)
 
-    hw = (c["h"], c["w"])
     errs = {p: {} for p in vc.PRECISIONS}
     deterministic = {}
-    for name, bufs in cases.items():
+    for name, (bufs, hw) in cases.items():
+        t_n = bufs["count"].shape[0]
+        tiles = vc.tile_count(vc.tile_plan(c["b"], *hw), *hw)
         for prec in vc.PRECISIONS:
-            got = vox.voxelize_windows(bufs, c["b"], hw, precision=prec)
-            want = vox.voxelize_buffers_plain(
-                bufs, c["b"], hw, accum_dtype=torch.float64,
-                bf16_factors=prec == "default")
+            errs[prec][name], got = hold_to_plain(torch, vox, bufs, c["b"],
+                                                  hw, prec, name)
             again = vox.voxelize_windows(bufs, c["b"], hw, precision=prec)
             halves = torch.cat([vox.voxelize_windows(
                 {k: v[sl].contiguous() for k, v in bufs.items()}, c["b"], hw,
-                precision=prec) for sl in (slice(0, 16), slice(16, 32))])
+                precision=prec) for sl in (slice(0, t_n // 2),
+                                           slice(t_n // 2, t_n))])
             torch.cuda.synchronize()
-            errs[prec][name] = float((got - want).abs().max())
-            check(errs[prec][name] <= TOL_KERNEL,
-                  f"voxelizer {name} ({prec}): max abs err "
-                  f"{errs[prec][name]} > {TOL_KERNEL}")
-            deterministic[f"{name} ({prec})"] = same = (
+            deterministic[f"{name} ({prec}, {tiles} tiles)"] = same = (
                 torch.equal(got, again) and torch.equal(got, halves))
             check(same, f"voxelizer {name} ({prec}): not bit-identical "
-                  f"across launches or across 32 vs 16 + 16 windows")
+                  f"across launches or across {t_n} vs {t_n // 2} + "
+                  f"{t_n - t_n // 2} windows")
+            del got, again, halves
+    f32_wire = cases["f32 wire"][0]
     for bad in ("high", "bf16"):
         try:
-            vox.voxelize_windows(cases["f32 wire"], c["b"], hw,
-                                 precision=bad)
+            vox.voxelize_windows(f32_wire, c["b"], ecd, precision=bad)
         except ValueError:
             continue
         fail(f"precision {bad!r} must raise")
     before = vc.launch_count()
     z = {k: (v[:, :0].contiguous() if k != "count" else v)
-         for k, v in cases["f32 wire"].items()}
-    empty = vox.voxelize_windows(z, c["b"], hw)
+         for k, v in f32_wire.items()}
+    empty = vox.voxelize_windows(z, c["b"], ecd)
     check(vc.launch_count() == before and not bool(empty.abs().sum()),
           "zero capacity must return zeros without a launch")
 
     # times at the single-sequence path's wire (int16 coords, f32 ts, int8
-    # ps), both precisions
-    times = {p: time_variant(torch, vox, cases["f32 wire"], p, hw, c["b"])
+    # ps), both precisions; HIGHEST at the BS-ERGB sensor
+    times = {p: time_variant(torch, vox, f32_wire, p, ecd, c["b"])
              for p in vc.PRECISIONS}
+    bs_bufs, bs_hw = cases["f32 wire 625x970"]
     result = {"phase": "kernel", "max_abs_err": errs,
+              "bit_equal_int64_plain": True,
               "bit_identical": deterministic, "times_f32_wire": times,
+              "times_625x970_highest": time_variant(
+                  torch, vox, bs_bufs, "highest", bs_hw, c["b"]),
               "shape": c}
     emit(result)
     return result
@@ -495,6 +539,18 @@ def top_kernels(by_name, n=12):
     return [[k[:90], t / 1e3, c] for k, (t, c) in top]
 
 
+def voxelize_kernels(by_name):
+    """The voxelizer's kernels in a profile: {name: [ms, launches]}, each
+    kernel's template instances folded into its name (csrc/voxelize.cu)."""
+    out = {}
+    for k, (us, cnt) in by_name.items():
+        m = re.search(r"voxelize_\w+_kernel", k)
+        if m:
+            ms, n = out.get(m.group(0), (0.0, 0))
+            out[m.group(0)] = (ms + us / 1e3, n + cnt)
+    return {k: list(v) for k, v in sorted(out.items())}
+
+
 def phase_profile(torch, runner, bufs, n, label):
     """Where one steady chunk's time goes (voxelize, n model steps,
     post-norm): torch.profiler's device events against the wall clock."""
@@ -509,14 +565,15 @@ def phase_profile(torch, runner, bufs, n, label):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, _, by_name = device_time(torch, prof)
+    voxelizer = voxelize_kernels(by_name)
     emit({"phase": "profile", "path": label, "lanes": runner.lanes,
           "windows": n, "dtype": str(runner.dtype), "wall_ms": wall_ms,
           "device_busy_ms": busy_ms,
           "device_idle_share": (1 - busy_ms / wall_ms)
           if busy_ms is not None else None,
-          "voxelize_ms": sum(t for k, (t, _) in by_name.items()
-                             if "voxelize" in k) / 1e3
+          "voxelize_ms": sum(ms for ms, _ in voxelizer.values())
           if busy_ms is not None else None,
+          "voxelize_kernels": voxelizer,
           "top_kernels": top_kernels(by_name)})
 
 
@@ -549,6 +606,7 @@ def phase_run_profile(torch, dataset, switches, n_frames, label,
           "device_idle_share_in_span": (1 - busy_ms / span_ms) if measured
           else None,
           "ms_per_frame_steady_traced": timings.ms_per_frame("E2VID"),
+          "voxelize_kernels": voxelize_kernels(by_name),
           "top_kernels": top_kernels(by_name, 8)})
 
 
@@ -686,28 +744,15 @@ def phase_lockstep(torch, vc, vox, work, card, device="cuda"):
     chunk = bf16_runner.upload(pack_lanes(seqs, CHUNK_T, cap, "compact4"))
     flat = {k: v.reshape((N_LANES * CHUNK_T,) + tuple(v.shape[2:]))
             for k, v in chunk.items()}
-    got = vox.voxelize_windows(flat, c["b"], hw, precision="default")
-    want = vox.voxelize_buffers_plain(flat, c["b"], hw,
-                                      accum_dtype=torch.float64,
-                                      bf16_factors=True)
-    torch.cuda.synchronize()
-    lock_err = float((got - want).abs().max())
-    check(lock_err <= TOL_KERNEL, f"bf16-factor kernel at the lockstep "
-          f"shape: {lock_err} > {TOL_KERNEL}")
-    del got, want
+    lock_err = hold_to_plain(torch, vox, flat, c["b"], hw, "default",
+                             "bf16 lockstep launch")[0]
     kernel_times = {"default_compact4": time_variant(
         torch, vox, flat, "default", hw, c["b"])}
     f32_chunk = {k: torch.from_numpy(v).cuda().reshape(
         (N_LANES * CHUNK_T,) + v.shape[2:])
         for k, v in pack_lanes(seqs, CHUNK_T, cap, "f32").items()}
-    got = vox.voxelize_windows(f32_chunk, c["b"], hw, precision="highest")
-    want = vox.voxelize_buffers_plain(f32_chunk, c["b"], hw,
-                                      accum_dtype=torch.float64)
-    torch.cuda.synchronize()
-    lock_err_f32 = float((got - want).abs().max())
-    check(lock_err_f32 <= TOL_KERNEL, f"HIGHEST kernel at the lockstep "
-          f"shape: {lock_err_f32} > {TOL_KERNEL}")
-    del got, want
+    lock_err_f32 = hold_to_plain(torch, vox, f32_chunk, c["b"], hw,
+                                 "highest", "f32 lockstep launch")[0]
     kernel_times["highest_f32"] = time_variant(torch, vox, f32_chunk,
                                                "highest", hw, c["b"])
     result = {"phase": "lockstep", "method": "E2VID", "width": "full",
@@ -723,6 +768,7 @@ def phase_lockstep(torch, vc, vox, work, card, device="cuda"):
               "bf16_vs_f32_raw": {"mean": bf16_mean, "max": bf16_max},
               "kernel_lockstep_max_abs_err": {"default_compact4": lock_err,
                                               "highest_f32": lock_err_f32},
+              "kernel_lockstep_bit_equal_int64_plain": True,
               "kernel_at_lockstep_shape": kernel_times}
     emit(result)
     phase_profile(torch, bf16_runner, chunk, CHUNK_T, "lockstep_bf16")
@@ -766,6 +812,7 @@ def main():
     source = "evreal_tpu_torch/kernels/csrc/voxelize.cu"
     f32_times = kern["times_f32_wire"]["highest"]
     bf16_times = lock["kernel_at_lockstep_shape"]["default_compact4"]
+    lock_f32 = lock["kernel_at_lockstep_shape"]["highest_f32"]
     emit({"kernels": [
         {"name": "voxelize_windows", "route": "cuda", "source": source,
          "replaces": "evreal_tpu/kernels/voxelize_pallas.py:249",
@@ -780,7 +827,12 @@ def main():
          "ms": f32_times["ms"], "plain_ms": f32_times["plain_ms"],
          "bound_ms": f32_times["bound_ms"], "bound_by": f32_times["bound_by"],
          "library_ms": f32_times["library_ms"],
-         "shape": [f32_times["windows"], ECD["e"]], "card": smi},
+         "shape": [f32_times["windows"], ECD["e"]],
+         "bit_equal_int64_plain": True,
+         "lockstep_f32": {k: lock_f32[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "windows")},
+         "card": smi},
         {"name": "voxelize_windows_bf16_factors", "route": "cuda",
          "source": source,
          "replaces": "evreal_tpu/kernels/voxelize_pallas.py:249 "
@@ -795,7 +847,7 @@ def main():
          "bound_by": bf16_times["bound_by"],
          "library_ms": bf16_times["library_ms"],
          "shape": [bf16_times["windows"], ECD["e"]], "wire": "compact4",
-         "card": smi}]})
+         "bit_equal_int64_plain": True, "card": smi}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})

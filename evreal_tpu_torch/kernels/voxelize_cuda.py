@@ -1,16 +1,20 @@
 """Wrapper of the hand-written CUDA voxelizer (``csrc/voxelize.cu``).
 
-The kernel replaces the Pallas TPU kernels of
+The kernels replace the Pallas TPU kernels of
 ``evreal_tpu/kernels/voxelize_pallas.py`` (``_kernel`` and both precisions
-of ``_batched_kernel``); the source file's header says what bounds it on
-the card, how the design meets that, and why its sums are deterministic.
+of ``_batched_kernel``); the source file's header says what bounds them on
+the card, how the design meets that, and why their sums are deterministic.
+One call bins the events by tile and sums each tile in shared memory
+(count, scatter and accumulate kernels); ``tile_plan`` cuts the grid.
 
 The library is built with ``nvcc`` into ``build/evreal_tpu_torch/`` at the
 repository root at first use, keyed by a hash of the source and the flags,
 and loaded with ``ctypes`` (a plain C interface, so the build takes
-seconds). Nothing is built or loaded when this module is imported. The
-plain PyTorch version of the same function is
-``evreal_tpu_torch.ops.voxelize.voxelize_windows_plain``.
+seconds; ``PyDLL``, so a call holds the GIL and the library's per-device
+launch settings are never written by two threads at once). Nothing is
+built or loaded when this module is imported. The plain PyTorch version of
+the same function is ``evreal_tpu_torch.ops.voxelize.voxelize_windows_plain``
+(with ``accum_dtype=torch.int64`` it does the kernels' arithmetic).
 """
 
 import ctypes
@@ -42,9 +46,17 @@ _U16_TS_SCALE = 65535.0  # the compact wire's scale (data/packing.py)
 # "default" rounds each deposit weight to bf16 before the f32 accumulation
 PRECISIONS = ("highest", "default")
 
-# Calls that launched the kernel since the last reset, by precision (one
-# call = the deposit kernel and the conversion kernel). Only the launch
-# sites below add to them; ``launch_count()`` is their sum.
+# One accumulate block's int64 cells: two such blocks fit the 228 KB of
+# shared memory of an H100 SM (each block also holds 1 KB for the system
+# and a few bytes of its own).
+SMEM_BUDGET = 112 * 1024
+# The most tiles per window (csrc/voxelize.cu:kMaxTiles): the scatter block
+# keeps two int32 per tile within 48 KB of shared memory.
+MAX_TILES = 4096
+
+# Calls that launched the kernels since the last reset, by precision (one
+# call = the count, scatter and accumulate kernels). Only the launch sites
+# below add to them; ``launch_count()`` is their sum.
 launches_by_precision = dict.fromkeys(PRECISIONS, 0)
 _lib = None
 
@@ -93,13 +105,13 @@ def build():
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
+        lib = ctypes.PyDLL(build()["path"])
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.evreal_voxelize_windows.argtypes = (
-            [ptr] * 7 + [i32] * 9 + [ctypes.c_float, ptr])
+            [ptr] * 7 + [i32] * 11 + [ctypes.c_float, ptr])
         lib.evreal_voxelize_windows.restype = i32
         lib.evreal_voxelize_compact4.argtypes = (
-            [ptr] * 4 + [i32] * 8 + [ctypes.c_float, ptr])
+            [ptr] * 4 + [i32] * 10 + [ctypes.c_float, ptr])
         lib.evreal_voxelize_compact4.restype = i32
         lib.evreal_cuda_error_string.argtypes = [i32]
         lib.evreal_cuda_error_string.restype = ctypes.c_char_p
@@ -145,15 +157,55 @@ def _check(named, count):
                          f"{tuple(count.shape)} {count.dtype}")
 
 
-def _outputs(first, num_bins, hw):
-    """The f32 output and the zero-filled int64 fixed-point scratch."""
+def tile_plan(num_bins, h, w, smem_bytes=SMEM_BUDGET):
+    """Tile extent ``(rows, cols)`` in pixels for a ``(num_bins, h, w)``
+    grid: each tile's ``num_bins * rows * cols`` int64 cells fit
+    ``smem_bytes``. Bands of whole rows (``cols == w``) where a row fits,
+    else equal pieces of one row or more; the rows are spread evenly over
+    the bands. Tile ``(i, j)`` starts at pixel ``(i * rows, j * cols)`` and
+    is cut by the grid's edge. Raises when one pixel's cells do not fit."""
+    if min(num_bins, h, w) < 1:
+        raise ValueError(f"tile_plan: empty grid {(num_bins, h, w)}")
+    pixels = smem_bytes // (8 * num_bins)  # most pixels in a tile
+    if pixels < 1:
+        raise ValueError(f"tile_plan: {num_bins} int64 cells of one pixel "
+                         f"exceed {smem_bytes} bytes")
+    pieces = -(-w // pixels)
+    cols = -(-w // pieces)
+    rows = min(h, pixels // cols)
+    bands = -(-h // rows)
+    return -(-h // bands), cols
+
+
+def tile_count(plan, h, w):
+    """Tiles per window of a ``tile_plan``."""
+    rows, cols = plan
+    return -(-h // rows) * -(-w // cols)
+
+
+def _buffers(first, num_bins, hw):
+    """The tile plan and the launch's memory, neither filled here: the f32
+    output, and one scratch buffer that holds room for ``(T, E)`` records
+    of up to 8 bytes and then the ``3 * T * tiles + T + 1`` int32 counters
+    that the call zeroes (per (window, tile) the event count, the segment
+    start and the scatter's cursor; per window the count kernel's finished
+    blocks; the accumulate kernel's claim counter)."""
     t_n, e = first.shape
     if t_n > 65535:
         raise ValueError(f"voxelize (CUDA): T={t_n} exceeds the grid's "
                          f"y limit 65535")
-    shape = (t_n, num_bins) + tuple(hw)
-    return (torch.empty(shape, dtype=torch.float32, device=first.device),
-            torch.zeros(shape, dtype=torch.int64, device=first.device))
+    plan = tile_plan(num_bins, *hw)
+    tiles = tile_count(plan, *hw)
+    if tiles > MAX_TILES:
+        raise ValueError(f"voxelize (CUDA): {tiles} tiles of {plan} for "
+                         f"{(num_bins, *hw)} exceed {MAX_TILES}")
+    counters = 3 * t_n * tiles + t_n + 1
+    dev = first.device
+    return (plan,
+            torch.empty((t_n, num_bins) + tuple(hw), dtype=torch.float32,
+                        device=dev),
+            torch.empty(t_n * e + (counters + 1) // 2, dtype=torch.int64,
+                        device=dev))
 
 
 def reset_launches():
@@ -168,7 +220,7 @@ def launch_count():
 def _launched(lib, err, bf16):
     if err != 0:
         msg = (lib.evreal_cuda_error_string(err).decode() if err > 0
-               else "unknown type code or wire layout")
+               else "unknown type code, tile plan or wire layout")
         raise RuntimeError(f"voxelize (CUDA): launch failed: {msg} ({err})")
     launches_by_precision[PRECISIONS[int(bf16)]] += 1
 
@@ -180,10 +232,11 @@ def _stream(device):
 def voxelize(xs, ys, ts, ps, count, num_bins, hw, precision=None):
     """``(T, E)`` event buffers on a CUDA device plus ``(T,)`` int32
     ``count`` -> ``(T, num_bins, H, W)`` f32 on the current stream: the
-    int64 scratch's zero-fill, the deposit kernel and the conversion
-    kernel. ``precision``: ``None``/"highest" (f32 weights) or
-    "default" (bf16 factors). Zero capacity returns zeros without a
-    launch."""
+    counters' zero-fill and the count, scatter and accumulate kernels.
+    ``precision``: ``None``/"highest" (f32 weights) or "default" (bf16
+    factors). Zero capacity returns zeros without a launch. Polarity is taken as its sign: the
+    kernels deposit +w where ``ps > 0`` and -w elsewhere, which is exact
+    for the +-1 that every wire of ``data.packing`` holds."""
     bf16 = check_precision(precision)
     named = {"xs": xs, "ys": ys, "ts": ts, "ps": ps}
     _check(named, count)
@@ -199,14 +252,15 @@ def voxelize(xs, ys, ts, ps, count, num_bins, hw, precision=None):
     if e == 0 or t_n == 0:
         return torch.zeros((t_n, num_bins, h, w), dtype=torch.float32,
                            device=xs.device)
-    out, acc = _outputs(xs, num_bins, hw)
+    (rows, cols), out, scratch = _buffers(xs, num_bins, hw)
     lib = _load()
     scale = float((num_bins - 1) / _U16_TS_SCALE)  # rounded to f32 by ctypes
     with torch.cuda.device(xs.device):
         err = lib.evreal_voxelize_windows(
             xs.data_ptr(), ys.data_ptr(), ts.data_ptr(), ps.data_ptr(),
-            count.data_ptr(), acc.data_ptr(), out.data_ptr(), t_n, e,
-            num_bins, h, w, _COORD_TYPES[xs.dtype], _TS_TYPES[ts.dtype],
+            count.data_ptr(), scratch.data_ptr(), out.data_ptr(), t_n, e,
+            num_bins, h, w, rows, cols,
+            _COORD_TYPES[xs.dtype], _TS_TYPES[ts.dtype],
             _POL_TYPES[ps.dtype], int(bf16), scale, _stream(xs.device))
     _launched(lib, err, bf16)
     return out
@@ -228,13 +282,13 @@ def voxelize_compact4(ev, count, num_bins, hw, layout, precision=None):
         return torch.zeros((t_n, num_bins, h, w), dtype=torch.float32,
                            device=ev.device)
     idx_bits, ts_bits = layout
-    out, acc = _outputs(ev, num_bins, hw)
+    (rows, cols), out, scratch = _buffers(ev, num_bins, hw)
     lib = _load()
     scale = float((num_bins - 1) / _U16_TS_SCALE)
     with torch.cuda.device(ev.device):
         err = lib.evreal_voxelize_compact4(
-            ev.data_ptr(), count.data_ptr(), acc.data_ptr(), out.data_ptr(),
-            t_n, e, num_bins, h, w, idx_bits, ts_bits, int(bf16), scale,
-            _stream(ev.device))
+            ev.data_ptr(), count.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), t_n, e, num_bins, h, w, rows, cols, idx_bits,
+            ts_bits, int(bf16), scale, _stream(ev.device))
     _launched(lib, err, bf16)
     return out

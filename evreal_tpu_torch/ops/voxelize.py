@@ -27,8 +27,10 @@ the bf16 serving mode's choice (``harness/runner.py:voxel_precision_choice``).
 (``{xs, ys, ts, ps, count}`` or the packed ``{ev, count}``). On CPU
 tensors it runs the plain PyTorch version here (``index_add_``, f32
 operations in the JAX package's order); on CUDA tensors it launches the
-hand-written kernel ``kernels/csrc/voxelize.cu``, which reads every wire
-(compact4 included) itself, or raises.
+hand-written kernels ``kernels/csrc/voxelize.cu``, which read every wire
+(compact4 included) themselves, or raises. The kernels sum in int64 fixed
+point at 2^32 (``to_fixed``, ``from_fixed``); the plain version with
+``accum_dtype=torch.int64`` does the same and equals them bit for bit.
 """
 
 import torch
@@ -37,6 +39,7 @@ from evreal_tpu_torch.data.packing import U16_TS_SCALE, compact4_layout
 from evreal_tpu_torch.kernels import voxelize_cuda
 
 _F32 = torch.float32
+FIXED_SCALE = 2.0 ** 32  # the kernels' fixed point (csrc/voxelize.cu)
 
 
 def decode_compact4(ev, sensor_size):
@@ -77,6 +80,34 @@ def t_norm(ts, count, num_bins):
     return torch.where(dt < 1e-9, t_deg, t_reg)
 
 
+def deposit_weights(tn, p, bf16_factors=False):
+    """An event's two deposits from its ``t_norm`` and f32 polarity:
+    ``(lo, w_lo, w_hi)`` with ``lo = floor(tn)`` (int64), ``w_lo =
+    p * (1 - frac)`` for bin ``lo`` and ``w_hi = p * frac`` for bin
+    ``lo + 1``; ``bf16_factors`` rounds each weight to bf16 (round to
+    nearest even) and back to f32."""
+    lo = torch.floor(tn).to(torch.int32).to(torch.int64)
+    frac = tn - lo.to(_F32)
+    w_lo = p * (1.0 - frac)
+    w_hi = p * frac
+    if bf16_factors:
+        w_lo = w_lo.to(torch.bfloat16).to(_F32)
+        w_hi = w_hi.to(torch.bfloat16).to(_F32)
+    return lo, w_lo, w_hi
+
+
+def to_fixed(w):
+    """f32 deposits -> int64 fixed point at 2^32: the scale is exact in f32,
+    then one rounding to nearest even (``__float2ll_rn``)."""
+    return torch.round(w * FIXED_SCALE).to(torch.int64)
+
+
+def from_fixed(acc):
+    """int64 fixed-point sums -> f32 with one rounding: int64 -> float64 is
+    exact below 2^53, the 2^-32 scale is exact."""
+    return (acc.to(torch.float64) * (1.0 / FIXED_SCALE)).to(_F32)
+
+
 def event_deposits(xs, ys, ts, ps, count, num_bins, hw, bf16_factors=False):
     """Per-event prep: the flat output indices of the two deposits of each
     event and their weights, for the valid ones only. Returns
@@ -92,15 +123,8 @@ def event_deposits(xs, ys, ts, ps, count, num_bins, hw, bf16_factors=False):
     valid = slot < count.to(torch.int64)[:, None]
     inb = valid & (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
 
-    tn = t_norm(ts, count, num_bins)
-    lo = torch.floor(tn).to(torch.int32).to(torch.int64)
-    frac = tn - lo.to(_F32)
-    p = ps.to(_F32)
-    w_lo = p * (1.0 - frac)
-    w_hi = p * frac
-    if bf16_factors:
-        w_lo = w_lo.to(torch.bfloat16).to(_F32)
-        w_hi = w_hi.to(torch.bfloat16).to(_F32)
+    lo, w_lo, w_hi = deposit_weights(t_norm(ts, count, num_bins),
+                                     ps.to(_F32), bf16_factors)
     ok_lo = inb & (lo >= 0) & (lo < num_bins)
     ok_hi = inb & (lo + 1 >= 0) & (lo + 1 < num_bins)
 
@@ -119,6 +143,10 @@ def voxelize_windows_plain(xs, ys, ts, ps, count, num_bins, hw,
     ``accum_dtype=torch.float64`` sums the (f32) deposits in float64 before
     the final cast, which makes the result independent of the summation
     order to f32 rounding (CUDA ``index_add_`` itself uses atomics).
+    ``accum_dtype=torch.int64`` is the kernels' arithmetic: each deposit
+    rounded to fixed point (``to_fixed``), an exact order-free sum, one
+    rounding to f32 (``from_fixed``); a cell of k deposits lies within
+    k * 2^-33 of the exact sum before that rounding.
     ``bf16_factors`` is the "default" precision (``event_deposits``)."""
     h, w = hw
     t, e = xs.shape
@@ -127,8 +155,10 @@ def voxelize_windows_plain(xs, ys, ts, ps, count, num_bins, hw,
     if e:  # zero capacity: nothing to read (ts[:, 0] does not exist)
         idx, wgt = event_deposits(xs, ys, ts, ps, count, num_bins, hw,
                                   bf16_factors)
-        out.index_add_(0, idx, wgt.to(accum_dtype))
-    return out.view(t, num_bins, h, w).to(_F32)
+        out.index_add_(0, idx, to_fixed(wgt) if accum_dtype == torch.int64
+                       else wgt.to(accum_dtype))
+    out = from_fixed(out) if accum_dtype == torch.int64 else out.to(_F32)
+    return out.view(t, num_bins, h, w)
 
 
 def voxelize_buffers_plain(bufs, num_bins, hw, accum_dtype=_F32,
@@ -157,8 +187,8 @@ def voxelize_windows(bufs, num_bins, hw, precision=None):
     ``{ev, count}``, ``count`` a ``(T,)`` int32) -> ``(T, num_bins, H, W)``
     f32. ``precision``: ``None``/"highest" or "default" (bf16 factors);
     anything else raises. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (per call one deposit and one conversion kernel,
-    compact4 decoded in the deposit kernel)."""
+    launch the kernels (per call a count, a scatter and an accumulate
+    kernel, compact4 decoded in the first two)."""
     bf16 = voxelize_cuda.check_precision(precision)
     dev = bufs["ev" if "ev" in bufs else "xs"].device
     if dev.type == "cpu":

@@ -17,6 +17,11 @@ from evreal_tpu_torch.ops import voxelize as tvox
 
 ATOL = 2e-5  # tests/test_pallas_voxelize.py:25
 H, W, B = 180, 240, 5
+# (H, W, B, T, E): ECD/HQF, MVSEC/CED and BS-ERGB sensors, many tiles each
+SHAPES = {"180x240": (180, 240, 5, 8, 4096),
+          "260x346": (260, 346, 5, 8, 8192),
+          "260x346 B15": (260, 346, 15, 4, 8192),
+          "625x970": (625, 970, 5, 4, 131072)}
 
 
 @pytest.fixture
@@ -27,17 +32,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def windows(seed, t=8, e=4096, float_coords=False):
+def windows(seed, t=8, e=4096, float_coords=False, h=H, w=W):
     """(T, E) f32-wire buffers: count 0 and E, a degenerate dt, an unsorted
     timestamp with t_norm <= -1, out-of-bounds coordinates."""
     rng = np.random.default_rng(seed)
     if float_coords:
-        xs = rng.uniform(-2.0, W + 2.0, (t, e)).astype(np.float32)
-        ys = rng.uniform(-2.0, H + 2.0, (t, e)).astype(np.float32)
+        xs = rng.uniform(-2.0, w + 2.0, (t, e)).astype(np.float32)
+        ys = rng.uniform(-2.0, h + 2.0, (t, e)).astype(np.float32)
         xs[:, :8] = -0.5
     else:
-        xs = rng.integers(-3, W + 3, (t, e)).astype(np.int16)
-        ys = rng.integers(-3, H + 3, (t, e)).astype(np.int16)
+        xs = rng.integers(-3, w + 3, (t, e)).astype(np.int16)
+        ys = rng.integers(-3, h + 3, (t, e)).astype(np.int16)
     ts = np.sort(rng.uniform(0.0, 0.03, (t, e)), axis=1)
     ts = (ts - ts[:, :1]).astype(np.float32)
     ps = (rng.integers(0, 2, (t, e)) * 2 - 1).astype(np.int8)
@@ -53,12 +58,12 @@ def on(device, *arrays):
             for a in arrays]
 
 
-def wires():
-    xs, ys, ts, ps, count = windows(1)
+def wires(h=H, w=W, t=8, e=4096):
+    xs, ys, ts, ps, count = windows(1, t, e, h=h, w=w)
     q = np.zeros(ts.shape, np.uint16)
     for i, n in enumerate(count):
         q[i, :n] = quantize_ts(ts[i, :n], 65535.0).astype(np.uint16)
-    fx, fy, _, _, _ = windows(2, float_coords=True)
+    fx, fy, _, _, _ = windows(2, t, e, float_coords=True, h=h, w=w)
     u8 = lambda a: np.where((a >= 0) & (a < 256), a, 255).astype(np.uint8)  # noqa: E731
     return {"int16 / f32 / int8": (xs, ys, ts, ps, count),
             "fractional f32 coords": (fx, fy, ts, ps, count),
@@ -68,19 +73,26 @@ def wires():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("wire", ["int16 / f32 / int8", "fractional f32 coords",
                                   "uint8 / uint16", "int32 / f32 ps"])
-def test_kernel_matches_plain(cuda_device, wire):
-    args = on(cuda_device, *wires()[wire])
+def test_kernel_matches_plain(cuda_device, wire, shape):
+    """Within 2e-5 of the float64 plain version, and bit-equal to the int64
+    fixed-point plain version (the kernels' arithmetic)."""
+    h, w, b, t, e = SHAPES[shape]
+    args = on(cuda_device, *wires(h, w, t, e)[wire])
     before = voxelize_cuda.launch_count()
     got = tvox.voxelize_windows(
-        dict(zip(("xs", "ys", "ts", "ps", "count"), args)), B, (H, W))
-    want = tvox.voxelize_windows_plain(*args, B, (H, W),
+        dict(zip(("xs", "ys", "ts", "ps", "count"), args)), b, (h, w))
+    want = tvox.voxelize_windows_plain(*args, b, (h, w),
                                        accum_dtype=torch.float64)
+    exact = tvox.voxelize_windows_plain(*args, b, (h, w),
+                                        accum_dtype=torch.int64)
     torch.cuda.synchronize()
     assert voxelize_cuda.launch_count() == before + 1
-    assert got.shape == (8, B, H, W) and got.dtype == torch.float32
+    assert got.shape == (t, b, h, w) and got.dtype == torch.float32
     assert float((got - want).abs().max()) <= ATOL
+    assert torch.equal(got, exact)
 
 
 @pytest.mark.cuda
@@ -105,36 +117,46 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         voxelize_cuda.voxelize(xs, ys, ts, ps, count.long(), B, (H, W))
 
 
-def compact4(xs, ys, ts, ps, count):
+def compact4(xs, ys, ts, ps, count, hw=(H, W)):
     ev = np.zeros(ts.shape, np.uint32)
     for i, n in enumerate(count):
         ev[i, :n] = encode_compact4(xs[i, :n], ys[i, :n], ts[i, :n],
-                                    ps[i, :n], (H, W))
+                                    ps[i, :n], hw)
     return ev
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("wire", ["int16 / f32 / int8", "compact4"])
+@pytest.mark.parametrize("wire,shape", [
+    ("int16 / f32 / int8", s) for s in SHAPES] + [
+    ("compact4", s) for s in SHAPES if s != "625x970"])  # no compact4 layout
 @pytest.mark.parametrize("precision", ["highest", "default"])
-def test_precisions_and_compact4_match_plain(cuda_device, wire, precision):
+def test_precisions_and_compact4_match_plain(cuda_device, wire, precision,
+                                             shape):
     """K2-HIGHEST and K2-DEFAULT (bf16 factors) on the split f32 wire and
     on compact4 decoded in the kernel, against the plain version (bf16
-    factors where asked, float64 accumulation) on the same tensors."""
-    args = wires()["int16 / f32 / int8"]
+    factors where asked) on the same tensors: within 2e-5 of its float64
+    sums and bit-equal to its int64 fixed-point sums."""
+    h, w, b, t, e = SHAPES[shape]
+    args = wires(h, w, t, e)["int16 / f32 / int8"]
     if wire == "compact4":
         bufs = dict(zip(("ev", "count"),
-                        on(cuda_device, compact4(*args), args[4])))
+                        on(cuda_device, compact4(*args, hw=(h, w)), args[4])))
     else:
         bufs = dict(zip(("xs", "ys", "ts", "ps", "count"),
                         on(cuda_device, *args)))
+    bf16 = precision == "default"
     before = voxelize_cuda.launch_count()
-    got = tvox.voxelize_windows(bufs, B, (H, W), precision=precision)
-    want = tvox.voxelize_buffers_plain(bufs, B, (H, W),
+    got = tvox.voxelize_windows(bufs, b, (h, w), precision=precision)
+    want = tvox.voxelize_buffers_plain(bufs, b, (h, w),
                                        accum_dtype=torch.float64,
-                                       bf16_factors=precision == "default")
+                                       bf16_factors=bf16)
+    exact = tvox.voxelize_buffers_plain(bufs, b, (h, w),
+                                        accum_dtype=torch.int64,
+                                        bf16_factors=bf16)
     torch.cuda.synchronize()
     assert voxelize_cuda.launch_count() == before + 1
     assert float((got - want).abs().max()) <= ATOL
+    assert torch.equal(got, exact)
 
 
 @pytest.mark.cuda

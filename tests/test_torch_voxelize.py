@@ -229,3 +229,80 @@ def test_compact_wires_match_jax_voxel_stage(wire, precision):
                                 precision=precision).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL)
 
+
+
+# ---------------------------------------------------------------------------
+# int64 fixed-point accumulation: the CUDA kernels' arithmetic
+# ---------------------------------------------------------------------------
+
+def every_wire(seed, t=6, e=768):
+    """Buffer dicts of every wire the kernels read, with the edge cases of
+    ``windows``: int16 / f32 / int8, fractional f32 coords, int32 coords
+    with f32 polarity, the compact wire (uint8 / uint16) and compact4."""
+    args = windows(seed, t, e)
+    xs, ys, ts, ps, count = args
+    fx, fy = windows(seed + 1, t, e, "float")[:2]
+    return {"int16": split(*args),
+            "float": split(fx, fy, ts, ps, count),
+            "int32": split(xs.astype(np.int32), ys.astype(np.int32), ts,
+                           ps.astype(np.float32), count),
+            **{k: {n: torch.from_numpy(v) for n, v in bufs.items()}
+               for k, bufs in compact_wires(*args).items()}}
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("wire", ["int16", "float", "int32", "compact",
+                                  "compact4"])
+def test_int64_accumulation_within_rounding_of_float64(wire, precision):
+    """Each deposit rounds to 2^-32, so a cell of k deposits lies within
+    k * 2^-33 of the float64 sum before the final cast; each side's cast to
+    f32 adds at most half an f32 spacing, and the float64 sum of k deposits
+    of magnitude <= 1 is within k * 2^-50 of exact."""
+    bufs = every_wire(12)[wire]
+    bf16 = precision == "default"
+    i64 = tvox.voxelize_buffers_plain(bufs, B, (H, W),
+                                      accum_dtype=torch.int64,
+                                      bf16_factors=bf16).numpy()
+    f64 = tvox.voxelize_buffers_plain(bufs, B, (H, W),
+                                      accum_dtype=torch.float64,
+                                      bf16_factors=bf16).numpy()
+    if "ev" in bufs:
+        split_bufs = tvox.decode_compact4(bufs["ev"], (H, W))
+    else:
+        split_bufs = [bufs[k] for k in ("xs", "ys", "ts", "ps")]
+    idx, _ = tvox.event_deposits(*split_bufs, bufs["count"], B, (H, W), bf16)
+    k = np.bincount(idx.numpy(), minlength=i64.size).reshape(i64.shape)
+    assert k.max() >= 2  # some cells sum several deposits
+    spacing = np.spacing(np.maximum(np.abs(i64), np.abs(f64)))
+    assert (np.abs(i64 - f64) <= k * 2.0 ** -33 + k * 2.0 ** -50
+            + spacing).all()
+    assert not i64[k == 0].any()
+
+
+def test_int64_accumulation_rounds_each_deposit_to_nearest_even():
+    """Deposits at and between the 2^-32 steps: ties go to the even step
+    (``__float2ll_rn``), and one cell sums them exactly."""
+    half = 2.0 ** -33
+    w = torch.tensor([half, 3 * half, -half, -3 * half, 2.0 ** -40, 1.0],
+                     dtype=torch.float32)
+    assert tvox.to_fixed(w).tolist() == [0, 2, 0, -2, 0, 2 ** 32]
+    acc = tvox.to_fixed(w).sum().reshape(1)
+    assert tvox.from_fixed(acc).item() == 1.0
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_int64_accumulation_matches_jax(precision):
+    """The int64 mode against the JAX package: its scatter voxelizer (f32
+    weights) and K2 in interpret mode (both precisions), within 2e-5."""
+    args = windows(13, 11, 1024)
+    bf16 = precision == "default"
+    got = tvox.voxelize_windows_plain(*port(*args), B, (H, W),
+                                      accum_dtype=torch.int64,
+                                      bf16_factors=bf16).numpy()
+    k2 = np.asarray(voxelize_pallas_windows(
+        *args, B, (H, W), interpret=True,
+        precision=(jax.lax.Precision.DEFAULT if bf16
+                   else jax.lax.Precision.HIGHEST)))
+    np.testing.assert_allclose(got, k2, atol=ATOL)
+    if not bf16:
+        np.testing.assert_allclose(got, jax_windows(*args), atol=ATOL)
