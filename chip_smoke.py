@@ -50,8 +50,28 @@ Phases, each printing one JSON line:
    chunk, then a whole bf16 lockstep ``evaluate`` traced on the device
    (busy against wall: the run's idle share); each profile names the
    voxelizer's kernels with their times;
-6. the ``kernels`` line: per ported kernel its launches on its path, error
-   and times beside its bound;
+6. methods — writes random-weight reference-schema ``.pth`` checkpoints
+   (seed 0, explicit generators) of all eight method configs at their
+   published widths (``published_methods``), one 128-window synthetic
+   sequence and 4 more of the same resolution, and runs ``evaluate`` for
+   each method on ``cuda`` three times: the sequence in f32, the 4 in f32
+   lockstep and in bf16 on compact4. Fails on any exception ``evaluate``
+   contains (its stdout is captured), checks every output tree, finite
+   scores and one voxelizer launch per chunk at the path's precision (the
+   counts set to 0 before each run); holds the voxelizer at the three
+   paths' launches on their data (chunk 0: 32 windows of the sequence on
+   the f32 wire at HIGHEST; 4 x 32 windows of the lanes in one launch, on
+   the f32 wire at HIGHEST and on compact4 at DEFAULT) bit-equal to the
+   int64 plain version and within 2e-5 of the float64 one, and times
+   them; holds the raw reconstructions of the
+   first 8 windows: f32 lockstep against each lane alone within 1e-4, bf16
+   against f32 within mean 0.02 / max 0.2, and, for the classes this slice
+   added (FireNet_legacy, HyperE2VID, SPADE-E2VID, ET-Net), the card (TF32
+   off) against the CPU path within 1e-4; steady ms/frame per method and
+   path; profile — one steady chunk each of ET-Net and HyperE2VID;
+7. the ``kernels`` line: per ported kernel its launches on its path (and
+   per method and path in the methods phase), error and times beside its
+   bound;
 
 then nvidia-smi's name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -83,6 +103,8 @@ EVENTS_PER_WINDOW = 30000
 N_WINDOWS = 96
 CHUNK_T = 32
 N_LANES = 16
+MODEL_WINDOWS = 128  # the methods phase: one sequence, and 4 in lockstep
+MODEL_LANES = 4
 
 
 def emit(obj):
@@ -574,6 +596,7 @@ def phase_profile(torch, runner, bufs, n, label):
           "voxelize_ms": sum(ms for ms, _ in voxelizer.values())
           if busy_ms is not None else None,
           "voxelize_kernels": voxelizer,
+          "kernel_launches": sum(n for _, n in by_name.values()),
           "top_kernels": top_kernels(by_name)})
 
 
@@ -778,6 +801,255 @@ def phase_lockstep(torch, vc, vox, work, card, device="cuda"):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 6: all eight method configs from reference-schema checkpoints
+# ---------------------------------------------------------------------------
+
+def published_methods():
+    """method -> (registry class, constructor kwargs, kwargs the method's
+    checkpoint schema records) at the published widths: the E2VID family's
+    (reference eval.py:134-139), HyperE2VID's (the same plus the dynamic
+    decoder and ConvGRU cells), FireNet's (base 16, kernel 3, ConvGRU,
+    block 0 of 2 recurrent; Scheerlinck et al., WACV 2020), SPADE-E2VID's
+    and ET-Net's fixed ones (ET-Net's FFN width, 4 x 256, is an
+    assumption: the repository does not record it)."""
+    from evreal_tpu_torch.convert.checkpoint import SSL_E2VID_KWARGS
+    from evreal_tpu_torch.models import flagship_e2vid_kwargs
+
+    e2vid = {k: v for k, v in flagship_e2vid_kwargs().items()
+             if k != "final_activation"}
+    hyper = dict(e2vid, use_dynamic_decoder=True,
+                 recurrent_block_type="convgru")
+    firenet = {"num_bins": 5, "base_num_channels": 16, "kernel_size": 3}
+    legacy = dict(firenet, recurrent_block_type="convgru",
+                  num_residual_blocks=2, recurrent_blocks={"resblock": [0]})
+    eitr = {"num_bins": 5, "norm": None}
+    return {
+        "E2VID": ("E2VIDRecurrent", e2vid, e2vid),
+        "E2VID+": ("E2VIDRecurrent", e2vid, e2vid),
+        "FireNet": ("FireNet_legacy", legacy, legacy),
+        "FireNet+": ("FireNet", firenet, firenet),
+        "SPADE-E2VID": ("SpadeE2vid", {}, None),
+        "SSL-E2VID": ("E2VIDRecurrent", SSL_E2VID_KWARGS, None),
+        "ET-Net": ("EITR", dict(eitr, dim_feedforward=4 * 256), eitr),
+        "HyperE2VID": ("E2VIDRecurrent", hyper, hyper),
+    }
+
+
+NEW_CLASS_METHODS = ("FireNet", "HyperE2VID", "SPADE-E2VID", "ET-Net")
+
+
+def random_init(torch, model, seed):
+    """Seeded random weights from an explicit generator: weights uniform
+    in +-1/sqrt(fan_in) (torch's default bound), biases in +-0.1, norm
+    gains in 0.8..1.2, BN statistics random."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.ndim >= 2:
+                bound = p[0].numel() ** -0.5
+                p.uniform_(-bound, bound, generator=g)
+            elif name.endswith("weight"):
+                p.uniform_(0.8, 1.2, generator=g)
+            else:
+                p.uniform_(-0.1, 0.1, generator=g)
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.normal_(0.0, 0.1, generator=g)
+            elif name.endswith("running_var"):
+                b.uniform_(0.5, 1.5, generator=g)
+    return model
+
+
+def write_method_checkpoints(torch, root):
+    """Reference-schema ``.pth`` files of all eight methods (seed 0) and
+    the method configs of the repository naming them."""
+    from evreal_tpu_torch.convert.checkpoint import save_method_checkpoint
+    from evreal_tpu_torch.harness.config import REPO_ROOT, read_json
+    from evreal_tpu_torch.models import build_model
+
+    for i, (method, (cls, kwargs, recorded)) in enumerate(
+            published_methods().items()):
+        model = random_init(torch, build_model(cls, kwargs), seed=i)
+        path = os.path.join(root, "pretrained", method, "model.pth")
+        os.makedirs(os.path.dirname(path))
+        save_method_checkpoint(path, method, model, recorded)
+        cfg = read_json(os.path.join(REPO_ROOT, "config", "method",
+                                     method + ".json"))
+        write_config(root, "method", method, dict(cfg, model_path=path))
+
+
+def contained(out, label):
+    """Fail on any exception ``evaluate`` contained (it prints it and goes
+    on, exit code 0)."""
+    bad = [line for line in out.splitlines() if "Exception while" in line]
+    if bad:
+        print(out[-20000:], file=sys.stderr)
+    check(not bad, f"{label}: evaluate contained {bad[:2]}")
+
+
+def run_evaluate(vc, method, dataset, switches, want, label, device):
+    """``evaluate`` of one method with its stdout captured; the launches
+    of the voxelizer in this run (counts set to 0 just before) must be
+    ``want``. Returns (launches, steady ms per frame, wall s)."""
+    import io
+    from contextlib import redirect_stdout
+
+    from evreal_tpu_torch.harness.runner import evaluate
+    from evreal_tpu_torch.harness.timers import TimingLog
+
+    timings, buf = TimingLog(), io.StringIO()
+    vc.reset_launches()
+    t0 = time.perf_counter()
+    with env(**switches), redirect_stdout(buf):
+        evaluate([method], ["std"], [dataset], ["mse", "ssim"],
+                 device=device, timings=timings)
+    wall_s = time.perf_counter() - t0
+    launches = dict(vc.launches_by_precision)
+    contained(buf.getvalue(), f"{method} {label}")
+    check(launches == want, f"{method} {label}: voxelizer launches "
+          f"{launches}, want {want} (one per chunk of {CHUNK_T} windows)")
+    return launches, timings.ms_per_frame(method), wall_s
+
+
+def phase_methods(torch, vc, vox, work, card, device="cuda"):
+    from evreal_tpu_torch.data import Sequence, pack_windows, plan_capacity
+    from evreal_tpu_torch.data.packing import bucket_capacity
+    from evreal_tpu_torch.harness.runner import (MethodBundle,
+                                                 get_method_config)
+
+    c = ECD
+    hw = (c["h"], c["w"])
+    root = os.path.join(work, "methods")
+    t0 = time.perf_counter()
+    write_method_checkpoints(torch, root)
+    lanes = [f"lane{j}" for j in range(MODEL_LANES)]
+    make_sequence(os.path.join(root, "data", "MSYN", "seq0"), *hw,
+                  MODEL_WINDOWS, EVENTS_PER_WINDOW, seed=7)
+    for j, name in enumerate(lanes):
+        make_sequence(os.path.join(root, "data", "MLOCK", name), *hw,
+                      MODEL_WINDOWS, EVENTS_PER_WINDOW, seed=200 + j)
+    for ds, names in (("MSYN", ["seq0"]), ("MLOCK", lanes)):
+        write_config(root, "dataset", ds,
+                     {"root_path": os.path.join(root, "data", ds),
+                      "sequences": {n: {} for n in names}})
+    setup_s = time.perf_counter() - t0
+    os.chdir(root)
+    n_chunks = -(-MODEL_WINDOWS // CHUNK_T)
+    f32 = dict(EVREAL_DTYPE=None, EVREAL_WIRE=None)
+    bf16 = dict(EVREAL_DTYPE="bfloat16", EVREAL_WIRE="compact4")
+    paths = (("single_f32", "MSYN", f32, "highest"),
+             ("lockstep_f32", "MLOCK", f32, "highest"),
+             ("lockstep_bf16_compact4", "MLOCK", bf16, "default"))
+    seq = Sequence(os.path.join(root, "data", "MSYN", "seq0"),
+                   num_bins=c["b"])
+    seqs = [Sequence(os.path.join(root, "data", "MLOCK", n),
+                     num_bins=c["b"]) for n in lanes]
+    cap = bucket_capacity(EVENTS_PER_WINDOW)
+    first8 = pack_windows(seq, list(range(8)))[0]
+
+    # the voxelizer at the launches the three paths make, on their data:
+    # chunk 0 at the capacity evaluate plans, MODEL_LANES x CHUNK_T windows
+    # in one launch in lockstep
+    def capacity(ss):
+        return plan_capacity(m["event_count"] for s in ss
+                             for m in s.windows())
+
+    launch = {"single_f32": (pack_windows(seq, list(range(CHUNK_T)),
+                                          capacity=capacity([seq]))[0],
+                             "highest")}
+    for label, wire, prec in (("lockstep_f32", "f32", "highest"),
+                              ("lockstep_bf16_compact4", "compact4",
+                               "default")):
+        packed = pack_lanes(seqs, CHUNK_T, capacity(seqs), wire)
+        launch[label] = ({k: v.reshape((-1,) + v.shape[2:])
+                          for k, v in packed.items()}, prec)
+    kernel_at_launch = {}
+    for label, (arrays, prec) in launch.items():
+        bufs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in arrays.items()}
+        err = hold_to_plain(torch, vox, bufs, c["b"], hw, prec,
+                            f"methods {label} launch")[0]
+        kernel_at_launch[label] = dict(
+            time_variant(torch, vox, bufs, prec, hw, c["b"]),
+            precision=prec, max_abs_err=err,
+            capacity=int(bufs["xs" if "xs" in bufs else "ev"].shape[1]))
+    emit({"phase": "methods_kernel", "card": card,
+          "bit_equal_int64_plain": True, "at_launch": kernel_at_launch})
+    results = {}
+    for method in published_methods():
+        res = {"launches": {}, "ms_per_frame_steady": {}, "wall_s": {}}
+        for label, ds, switches, prec in paths:
+            want = {"highest": 0, "default": 0, prec: n_chunks}
+            (res["launches"][label], res["ms_per_frame_steady"][label],
+             res["wall_s"][label]) = run_evaluate(
+                vc, method, ds, switches, want, label, device)
+            for name in (["seq0"] if ds == "MSYN" else lanes):
+                check_tree(os.path.join("outputs", "std", ds, name, method),
+                           MODEL_WINDOWS, hw, decode_frames=False,
+                           may_skip={0})
+            os.rename(os.path.join("outputs", "std", ds),
+                      os.path.join("outputs", "std", f"{ds}_{method}_"
+                                                     f"{label}"))
+        method_config = get_method_config(method)
+        raw = {}
+        with env(EVREAL_DTYPE=None):
+            bundle = MethodBundle(method, method_config, device)
+            single = bundle.runner_for(hw, method_config, c["b"])
+            lock_bufs = pack_lanes(seqs, 8, cap, "f32")
+            raw["lockstep_f32"] = lockstep_raw(bundle.batched_runner_for(
+                hw, method_config, c["b"], MODEL_LANES), lock_bufs)
+            raw["single_lanes"] = torch.stack([single.reconstruct(
+                single.init_state(), single.voxelize(single.upload(
+                    {k: v[j] for k, v in lock_bufs.items()})))[1].cpu()
+                for j in range(MODEL_LANES)])
+            if method in NEW_CLASS_METHODS:
+                cpu = MethodBundle(method, method_config, "cpu").runner_for(
+                    hw, method_config, c["b"])
+                for key, runner in (("card", single), ("cpu", cpu)):
+                    raw[key] = runner.reconstruct(
+                        runner.init_state(),
+                        runner.voxelize(runner.upload(first8)))[1].cpu()
+                if method in ("ET-Net", "HyperE2VID"):
+                    phase_profile(torch, single, single.upload(pack_windows(
+                        seq, list(range(CHUNK_T)))[0]), CHUNK_T,
+                        f"{method}_single_f32")
+        with env(EVREAL_DTYPE="bfloat16"):
+            bundle = MethodBundle(method, method_config, device)
+            raw["lockstep_bf16"] = lockstep_raw(bundle.batched_runner_for(
+                hw, method_config, c["b"], MODEL_LANES),
+                pack_lanes(seqs, 8, cap, "compact4"))
+        err = float((raw["lockstep_f32"] - raw["single_lanes"]).abs().max())
+        check(err <= TOL_LOCKSTEP, f"{method}: f32 lockstep vs single raw "
+              f"reconstructions {err} > {TOL_LOCKSTEP}")
+        res["recon_max_abs_err_lockstep_vs_single"] = err
+        d = (raw["lockstep_bf16"] - raw["lockstep_f32"]).abs()
+        res["bf16_vs_f32_raw"] = {"mean": float(d.mean()),
+                                  "max": float(d.max())}
+        check(0 < d.max() and d.mean() < BF16_MEAN and d.max() < BF16_MAX,
+              f"{method}: bf16 vs f32 raw reconstructions mean "
+              f"{float(d.mean())} (< {BF16_MEAN}), max {float(d.max())} "
+              f"(< {BF16_MAX}, > 0)")
+        if "cpu" in raw:
+            err = float((raw["card"] - raw["cpu"]).abs().max())
+            check(err <= TOL_RECON, f"{method}: card vs CPU raw "
+                  f"reconstructions {err} > {TOL_RECON}")
+            res["recon_max_abs_err_vs_cpu"] = err
+        res["raw_range_f32"] = [float(raw["lockstep_f32"].min()),
+                                float(raw["lockstep_f32"].max())]
+        results[method] = res
+        emit({"phase": "method", "method": method, "card": card, **res})
+    result = {"phase": "methods", "sensor": list(hw),
+              "windows": MODEL_WINDOWS, "lanes": MODEL_LANES,
+              "chunk_t": CHUNK_T, "setup_s": setup_s, "card": card,
+              "kernel_at_launch": kernel_at_launch,
+              "ms_per_frame_steady": {m: r["ms_per_frame_steady"]
+                                      for m, r in results.items()},
+              "launches": {m: r["launches"] for m, r in results.items()}}
+    emit(result)
+    return result
+
+
 def main():
     import torch
 
@@ -806,8 +1078,21 @@ def main():
         try:
             main_res = phase_main_path(torch, vc, work, smi)
             lock = phase_lockstep(torch, vc, vox, work, smi)
+            methods = phase_methods(torch, vc, vox, work, smi)
         finally:
             os.chdir(cwd)
+    by_method = methods["launches"]
+    at_launch = methods["kernel_at_launch"]
+
+    def launch_errs(prec):
+        return [v["max_abs_err"] for v in at_launch.values()
+                if v["precision"] == prec]
+
+    def launch_times(prec):
+        return {k: {kk: v[kk] for kk in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "windows")} for k, v in at_launch.items()
+            if v["precision"] == prec}
 
     source = "evreal_tpu_torch/kernels/csrc/voxelize.cu"
     f32_times = kern["times_f32_wire"]["highest"]
@@ -823,15 +1108,20 @@ def main():
              "highest"],
          "max_abs_err": max(
              list(kern["max_abs_err"]["highest"].values())
-             + [lock["kernel_lockstep_max_abs_err"]["highest_f32"]]),
+             + [lock["kernel_lockstep_max_abs_err"]["highest_f32"]]
+             + launch_errs("highest")),
          "ms": f32_times["ms"], "plain_ms": f32_times["plain_ms"],
          "bound_ms": f32_times["bound_ms"], "bound_by": f32_times["bound_by"],
          "library_ms": f32_times["library_ms"],
          "shape": [f32_times["windows"], ECD["e"]],
          "bit_equal_int64_plain": True,
+         "launches_by_method": {m: {p: n["highest"] for p, n in v.items()
+                                    if n["highest"]}
+                                for m, v in by_method.items()},
          "lockstep_f32": {k: lock_f32[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "windows")},
+         "methods_launches": launch_times("highest"),
          "card": smi},
         {"name": "voxelize_windows_bf16_factors", "route": "cuda",
          "source": source,
@@ -841,13 +1131,19 @@ def main():
          "launches": lock["runs"]["bf16_compact4"]["launches"]["default"],
          "max_abs_err": max(list(kern["max_abs_err"]["default"].values())
                             + [lock["kernel_lockstep_max_abs_err"][
-                                "default_compact4"]]),
+                                "default_compact4"]]
+                            + launch_errs("default")),
          "ms": bf16_times["ms"], "plain_ms": bf16_times["plain_ms"],
          "bound_ms": bf16_times["bound_ms"],
          "bound_by": bf16_times["bound_by"],
          "library_ms": bf16_times["library_ms"],
          "shape": [bf16_times["windows"], ECD["e"]], "wire": "compact4",
-         "bit_equal_int64_plain": True, "card": smi}]})
+         "bit_equal_int64_plain": True,
+         "launches_by_method": {m: {p: n["default"] for p, n in v.items()
+                                    if n["default"]}
+                                for m, v in by_method.items()},
+         "methods_launches": launch_times("default"),
+         "card": smi}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": count}})

@@ -4,7 +4,8 @@
 
 It writes the same output tree (``outputs/<config>/<dataset>/<sequence>/
 <method>/``) and runs on the CUDA card unless ``--device`` names another
-device.
+device. A method's ``model_path`` may name a reference ``.pth`` or a
+converted ``.npz`` with its sidecar.
 """
 
 import argparse
@@ -18,8 +19,8 @@ def main(argv=None):
         description="event2im evaluation script (PyTorch/CUDA port)")
     parser.add_argument("-c", "--config", nargs="+", type=str,
                         help="evaluation configs")
-    parser.add_argument("-m", "--method", nargs="+", type=str, required=True,
-                        help="methods")
+    parser.add_argument("-m", "--method", nargs="+", type=str,
+                        help="methods (default: all eight)")
     parser.add_argument("-d", "--dataset", nargs="+", type=str,
                         help="datasets")
     parser.add_argument("-qm", "--metrics", nargs="+", type=str,

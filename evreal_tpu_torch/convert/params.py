@@ -3,10 +3,11 @@
 Converted checkpoints (``.npz`` of flat torch-style keys plus a
 ``.npz.json`` sidecar with ``{"model_name", "class", "kwargs"}``) hold
 arrays in the JAX package's layout (``evreal_tpu/convert/torch_ckpt.py``):
-conv weights HWIO, transposed-conv weights HWIO with the spatial flip
-applied, everything else (biases, norm statistics) as in torch. The
-linear (I, O) layout of the not-yet-ported attention models is not
-handled here.
+conv weights (and HyperE2VID's 4-D ``compositional_coefficients``) HWIO,
+transposed-conv weights HWIO with the spatial flip applied, 2-D weights
+(linear layers, attention's packed ``in_proj_weight``) as (I, O), except
+HyperE2VID's ``bases`` buffer, which keeps its layout; everything else
+(biases, norm statistics) as in torch.
 
 ``from_jax_tree`` undoes that into a ``state_dict`` for the port's
 modules, whose parameter paths are the same torch module paths the trees
@@ -46,14 +47,22 @@ def nest(flat):
     return tree
 
 
+# 2-D arrays that are not linear weights (evreal_tpu/convert/torch_ckpt.py:30)
+_KEEP_2D = ("bases",)
+
+
 def to_torch_layout(key, a):
-    """One converted array (JAX layout) -> the torch module's layout."""
+    """One converted array (JAX layout) -> the torch module's layout: the
+    inverse of the JAX package's ``convert_tensor``."""
     a = np.asarray(a)
-    if a.ndim == 4 and key.endswith("weight"):
+    if a.ndim == 4 and (key.endswith("weight")
+                        or key.endswith("compositional_coefficients")):
         if "transposed_conv2d" in key:
             # HWIO with spatial flip -> ConvTranspose2d (I, O, kh, kw)
             return a[::-1, ::-1].transpose(2, 3, 0, 1)
         return a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if a.ndim == 2 and not key.endswith(_KEEP_2D):
+        return a.T  # linear (I, O) -> (O, I)
     return a
 
 

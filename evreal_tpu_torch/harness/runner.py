@@ -22,10 +22,11 @@ the voxelizer and raises), ``EVREAL_BATCHED`` (lockstep groups, on unless
 "0"), ``EVREAL_BATCH_N`` (group width cap) and ``EVREAL_CHUNK_T``; the
 last two are parsed at import, as there.
 
-Out of scope so far (ROADMAP.md, Queue 1): color, hist-eq, videos and
-resume raise ``NotImplementedError``. The TPU-only levers (staging, mesh,
-S2D, UPFUSE, scan unroll) have no counterpart: a group runs on the one
-device it is given.
+Every method config runs (``models/``, weights from a converted ``.npz``
+or a reference ``.pth``). Out of scope so far (ROADMAP.md, Queue 1):
+color, hist-eq, videos and resume raise ``NotImplementedError``. The
+TPU-only levers (staging, mesh, S2D, UPFUSE, scan unroll) have no
+counterpart: a group runs on the one device it is given.
 """
 
 import contextlib
@@ -38,6 +39,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from evreal_tpu_torch.convert.checkpoint import load_method_checkpoint
 from evreal_tpu_torch.convert.params import from_jax_tree, load_params
 from evreal_tpu_torch.data import Sequence, pack_windows, plan_capacity
 from evreal_tpu_torch.data.packing import (
@@ -247,23 +249,33 @@ class MethodRunner:
 # ---------------------------------------------------------------------------
 
 def load_method_params(method_config):
-    """A method's converted ``.npz`` (JAX layout) and its sidecar ->
-    (nested numpy tree, meta). A relative ``model_path`` resolves against
-    the working directory, then the repository root; ``.pth`` paths map to
-    the ``.npz`` beside them. Converting a torch ``.pth`` is not ported:
-    the JAX package's converter (``evreal_tpu.convert``) writes the
-    ``.npz``."""
+    """A method's weights -> (torch-layout ``state_dict``, meta), by the
+    JAX package's path resolution (``evreal_tpu/harness/runner.py:321-364``):
+    a relative ``model_path`` resolves against the working directory, then
+    the repository root; a converted ``.npz`` with its sidecar beside the
+    named path is read when there is one, else the reference ``.pth``
+    (``convert.checkpoint``). Nothing is written: no cache, nothing beside
+    the ``.pth``."""
     path = method_config["model_path"]
-    if not os.path.isabs(path) and not os.path.exists(path):
-        candidate = os.path.join(REPO_ROOT, path)
-        if os.path.exists(os.path.splitext(candidate)[0] + ".npz"):
-            path = candidate
-    path = os.path.splitext(path)[0] + ".npz"
-    if not os.path.exists(path):
+    stem = os.path.splitext(path)[0]
+    if not os.path.isabs(path) and not any(
+            os.path.exists(p) for p in (path, stem + ".npz", stem + ".pth")):
+        path = os.path.join(REPO_ROOT, path)
+        stem = os.path.splitext(path)[0]
+    npz, pth = stem + ".npz", stem + ".pth"
+    if os.path.exists(npz):
+        try:
+            tree, meta = load_params(npz)
+            return from_jax_tree(tree), meta
+        except FileNotFoundError:
+            # an .npz without its sidecar: the .pth, where there is one
+            if not os.path.exists(pth):
+                raise
+    if not os.path.exists(pth):
         raise FileNotFoundError(
-            f"{path} does not exist; the port reads converted checkpoints "
-            f"(.npz + .npz.json) only")
-    return load_params(path)
+            f"neither {npz} nor {pth} exists; place the reference "
+            f"checkpoint at {pth}")
+    return load_method_checkpoint(method_config["model_name"], pth)
 
 
 class MethodBundle:
@@ -273,9 +285,9 @@ class MethodBundle:
     def __init__(self, method_name, method_config, device):
         self.method_name = method_name
         self.device = torch.device(device)
-        tree, meta = load_method_params(method_config)
-        self.model = build_from_meta(meta)
-        self.model.load_state_dict(from_jax_tree(tree), strict=True)
+        state_dict, meta = load_method_params(method_config)
+        self.model = build_from_meta(meta, state_dict)
+        self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
         self._runners = {}
 
@@ -644,13 +656,19 @@ def eval_method_with_config(eval_config, method_name, datasets, metrics,
     return method_metrics
 
 
-def evaluate(method_names, eval_config_names=None, dataset_names=None,
+ALL_METHODS = ["E2VID", "E2VID+", "FireNet", "FireNet+", "SPADE-E2VID",
+               "SSL-E2VID", "ET-Net", "HyperE2VID"]
+
+
+def evaluate(method_names=None, eval_config_names=None, dataset_names=None,
              metrics=None, device=None, timings=None):
     """The reference ``evaluate`` (eval.py:413-444) on ``device`` (CUDA
-    unless the caller asks for another; raises without a card). Steady
-    ms/frame samples go to ``timings`` (a ``TimingLog``) when given.
-    Returns {eval config name: per-method lists of dataset trackers}."""
+    unless the caller asks for another; raises without a card), over all
+    eight methods unless ``method_names`` names some. Steady ms/frame
+    samples go to ``timings`` (a ``TimingLog``) when given. Returns {eval
+    config name: per-method lists of dataset trackers}."""
     device = resolve_device(device)
+    method_names = method_names or ALL_METHODS
     # a malformed EVREAL_WIRE fails here, not inside the per-dataset
     # containment (evreal_tpu/harness/runner.py:1255-1260)
     wire_format()

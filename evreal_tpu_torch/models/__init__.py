@@ -1,32 +1,51 @@
 """Model registry: reference class name -> the port's model class
-(``evreal_tpu/models/__init__.py``), restricted to the classes ported so
-far. ``build_model`` follows the reference's constructor conventions
-(eval.py:124-158): kwargs possibly nested under ``unet_kwargs``."""
+(``evreal_tpu/models/__init__.py``). ``build_model`` follows the
+reference's constructor conventions (eval.py:124-158): kwargs possibly
+nested under ``unet_kwargs`` or ``eitr_kwargs``."""
 
-from evreal_tpu_torch.models.firenet import FireNet
-from evreal_tpu_torch.models.unet import E2VIDRecurrent
+from evreal_tpu_torch.models.etnet import EITR
+from evreal_tpu_torch.models.firenet import FireNet, FireNetLegacy
+from evreal_tpu_torch.models.spade import SpadeE2vid
+from evreal_tpu_torch.models.unet import E2VIDRecurrent, FlowNet
 
-_REGISTRY = {"FireNet": FireNet, "E2VIDRecurrent": E2VIDRecurrent}
+_REGISTRY = {
+    "FireNet": FireNet,
+    "FireNet_legacy": FireNetLegacy,
+    "E2VIDRecurrent": E2VIDRecurrent,
+    "FlowNet": FlowNet,
+    "SpadeE2vid": SpadeE2vid,
+    "EITR": EITR,
+}
 
 
-def build_model(class_name, kwargs=None, num_encoders=None):
+def build_model(class_name, kwargs=None, num_encoders=None, state_dict=None):
+    """The model of ``class_name``; with ``state_dict`` (torch layout),
+    the sizes that the JAX package reads implicitly from the weights
+    (ET-Net's layer counts and FFN width, SPADE's hidden width:
+    ``shape_kwargs``; HyperE2VID's dynamic-decoder widths, which no
+    unet_kwargs may set: ``shape_args``) come from its arrays."""
     kwargs = dict(kwargs or {})
     if "unet_kwargs" in kwargs:
         kwargs = dict(kwargs["unet_kwargs"])
-    if class_name not in _REGISTRY:
-        raise NotImplementedError(
-            f"model class {class_name!r} is not ported yet (ported: "
-            f"{sorted(_REGISTRY)}); see ROADMAP.md, Queue 1")
-    model = _REGISTRY[class_name](**kwargs)
+    if "eitr_kwargs" in kwargs:
+        kwargs = dict(kwargs["eitr_kwargs"])
+    cls = _REGISTRY[class_name]
+    args = ()
+    if state_dict is not None and hasattr(cls, "shape_kwargs"):
+        kwargs.update(cls.shape_kwargs(state_dict))
+    if state_dict is not None and hasattr(cls, "shape_args"):
+        args = cls.shape_args(state_dict)
+    model = cls(*args, **kwargs)
     if num_encoders is not None:
         model.num_encoders = num_encoders
     return model
 
 
-def build_from_meta(meta):
-    """Build a model from a converted checkpoint's sidecar meta dict."""
+def build_from_meta(meta, state_dict=None):
+    """Build a model from a checkpoint's meta dict (a converted file's
+    sidecar or ``convert.checkpoint.load_method_checkpoint``'s)."""
     return build_model(meta["class"], meta.get("kwargs"),
-                       meta.get("num_encoders"))
+                       meta.get("num_encoders"), state_dict)
 
 
 def flagship_e2vid_kwargs(num_bins=5):

@@ -1,4 +1,4 @@
-"""NN layers of the main path (``evreal_tpu/nn/layers.py``), NCHW, eval mode.
+"""NN layers (``evreal_tpu/nn/layers.py``), NCHW, eval mode.
 
 Parameter paths are the reference's torch module paths (EVREAL
 model/submodules.py), so a converted checkpoint's keys load directly:
@@ -8,7 +8,9 @@ statistics; the residual block's InstanceNorm uses instance statistics).
 
 Convolutions are ``nn.Conv2d`` with OIHW weights. Its ``padding='same'``
 is the convention the JAX package's ``conv2d`` copies: an even kernel pads
-the extra element on the bottom/right.
+the extra element on the bottom/right. Linear layers and LayerNorm are
+torch's ``nn.Linear`` and ``nn.LayerNorm`` (eps 1e-5), pixel shuffle is
+``F.pixel_shuffle``: each is the operation the JAX package reimplements.
 """
 
 import torch
@@ -75,6 +77,39 @@ def instance_norm(x):
     """InstanceNorm2d(track_running_stats=False): per-sample, per-channel
     statistics over H, W even in eval mode; no affine."""
     return F.instance_norm(x, eps=_EPS_NORM)
+
+
+def resize_bilinear(x, out_h, out_w):
+    """``jax.image.resize(method='bilinear', antialias=False)``: half-pixel
+    centers, no antialiasing on downsampling. The output size is given,
+    not a scale factor, so the source coordinate is ``(i + 0.5) * in / out
+    - 0.5`` as there."""
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                         align_corners=False, antialias=False)
+
+
+def resize_nearest(x, out_h, out_w):
+    """Nearest resize by the JAX package's index rule, ``floor(arange(out)
+    * (in / out))`` in f32; equal sizes return ``x``. (``F.interpolate``'s
+    nearest mode computes its scale differently.)"""
+    h, w = x.shape[-2:]
+    if (out_h, out_w) == (h, w):
+        return x
+
+    def index(n_in, n_out):  # made on x's device: no host copy per call
+        pos = torch.arange(n_out, dtype=torch.float32, device=x.device)
+        return torch.floor(pos * (n_in / n_out)).to(torch.int64)
+
+    return x[..., index(h, out_h), :][..., index(w, out_w)]
+
+
+def unfold(x, kernel_size, padding=0):
+    """``F.unfold`` kept spatial: (N, C, H, W) -> (N, C * k * k, H', W')
+    patches in torch's (C, kh, kw) order (stride 1)."""
+    n = x.shape[0]
+    h = x.shape[2] + 2 * padding - kernel_size + 1
+    w = x.shape[3] + 2 * padding - kernel_size + 1
+    return F.unfold(x, kernel_size, padding=padding).view(n, -1, h, w)
 
 
 class ConvLayer(nn.Module):

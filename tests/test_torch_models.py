@@ -121,9 +121,42 @@ def test_unet_kwargs_are_strict():
     assert nested.num_encoders == 3
 
 
-def test_unported_models_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("E2VIDRecurrent", {**NARROW_E2VID,
-                                       "use_dynamic_decoder": True})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model("EITR", {})
+# every registry class: (kwargs, sidecar meta extras); the kwargs are what
+# the reference checkpoint schemas record
+HYPER = dict(NARROW_E2VID, recurrent_block_type="convgru",
+             final_activation="none", use_dynamic_decoder=True)
+REGISTRY_CASES = {
+    "FireNet": ({"base_num_channels": 8}, {"num_encoders": 0}),
+    "FireNet_legacy": ({"base_num_channels": 8, "kernel_size": 3}, {}),
+    "E2VIDRecurrent": ({"unet_kwargs": HYPER}, {}),
+    "FlowNet": (dict(NARROW_E2VID, num_output_channels=3), {}),
+    "SpadeE2vid": ({}, {"num_encoders": 3}),
+    "EITR": ({"eitr_kwargs": {"num_bins": 5, "norm": None}},
+             {"num_encoders": 3}),
+}
+
+
+@pytest.mark.parametrize("cls", sorted(REGISTRY_CASES))
+def test_registry_builds_from_kwargs_and_meta(cls):
+    """Every class of the JAX package's registry builds from kwargs and
+    from a sidecar meta (with and without its arrays), as JAX builds it."""
+    kwargs, extra = REGISTRY_CASES[cls]
+    model = build_model(cls, kwargs)
+    assert type(model).__name__ == {"FireNet_legacy": "FireNetLegacy"}.get(
+        cls, cls)
+    meta = {"class": cls, "kwargs": kwargs, **extra}
+    jmodel = j_build(cls, kwargs, extra.get("num_encoders"))
+    for sd in (None, model.state_dict()):
+        again = build_from_meta(meta, sd)
+        again.load_state_dict(model.state_dict(), strict=True)
+        assert again.num_encoders == jmodel.num_encoders
+        assert again.num_bins == jmodel.num_bins == 5
+
+
+@pytest.mark.parametrize("key", ["num_atom", "dynamic_shapes"])
+def test_hyper_unet_kwargs_stay_strict(key):
+    """A typo'd key, or the dynamic decoder's widths (which only a
+    checkpoint's arrays set), in unet_kwargs raise as the reference's
+    BaseUNet does."""
+    with pytest.raises(TypeError, match="unexpected unet_kwargs"):
+        build_model("E2VIDRecurrent", {"unet_kwargs": {**HYPER, key: 6}})

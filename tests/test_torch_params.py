@@ -67,6 +67,13 @@ def test_layouts():
     np.testing.assert_array_equal(sd["b.transposed_conv2d.weight"].numpy(),
                                   w[::-1, ::-1].transpose(2, 3, 0, 1))
     np.testing.assert_array_equal(sd["c.bias"].numpy(), np.ones(3))
+    lin = np.arange(6, dtype=np.float32).reshape(2, 3)
+    sd2 = from_jax_tree({"l": {"weight": lin}, "d": {"bases": lin},
+                         "h": {"compositional_coefficients": w}})
+    np.testing.assert_array_equal(sd2["l.weight"].numpy(), lin.T)  # (I, O)
+    np.testing.assert_array_equal(sd2["d.bases"].numpy(), lin)
+    np.testing.assert_array_equal(sd2["h.compositional_coefficients"]
+                                  .numpy(), w.transpose(3, 2, 0, 1))
     assert all(v.is_contiguous() for v in sd.values())
     assert nest({"x.y": 1, "x.z": 2}) == {"x": {"y": 1, "z": 2}}
 
@@ -94,3 +101,23 @@ def test_firenet_tree_loads_strictly():
     assert not missing.missing_keys and not missing.unexpected_keys
     meta = json.loads(json.dumps({"class": "FireNet", "kwargs": {}}))
     assert build_from_meta(meta).base == 16
+
+
+@pytest.mark.parametrize("cls,kwargs", [
+    ("E2VIDRecurrent", {**E2VID_META["kwargs"], "num_encoders": 3,
+                        "use_dynamic_decoder": True}),
+    ("EITR", {"num_encoder_layers": 1, "num_decoder_layers": 1,
+              "dim_feedforward": 16}),
+    ("SpadeE2vid", {}),
+    ("FireNet_legacy", {"base_num_channels": 8, "norm": "BN"})])
+def test_zoo_state_dicts_through_jax_converter_and_back(cls, kwargs):
+    """The layouts of the other models: linear and packed attention
+    weights (I, O), HyperE2VID's compositional coefficients (HWIO) and its
+    ``bases`` buffer (kept) come back unchanged."""
+    torch.manual_seed(1)
+    sd = build_model(cls, kwargs).state_dict()
+    back = from_jax_tree(nest(convert_state_dict(sd)))
+    assert back.keys() == sd.keys()
+    for k in sd:
+        torch.testing.assert_close(back[k], sd[k], rtol=0, atol=0)
+        assert back[k].is_contiguous()
