@@ -69,9 +69,35 @@ Phases, each printing one JSON line:
    added (FireNet_legacy, HyperE2VID, SPADE-E2VID, ET-Net), the card (TF32
    off) against the CPU path within 1e-4; steady ms/frame per method and
    path; profile — one steady chunk each of ET-Net and HyperE2VID;
-7. the ``kernels`` line: per ported kernel its launches on its path (and
-   per method and path in the methods phase), error and times beside its
-   bound;
+7. eval configs — with phase 6's E2VID and FireNet+ ``.pth`` files:
+   ``-c color`` for E2VID on a synthetic 260 x 346 sequence (CED's
+   sensor; 64 windows, one HIGHEST voxelizer launch per chunk of 16) and
+   for FireNet+ at an odd 259 x 345 (16 windows: the even crop and the
+   stretch), checking the three-channel PNGs, the timestamps and the empty
+   metric files; the color launch (T = 16) bit-equal to the int64 plain
+   version, within 2e-5 of the float64 one, and timed; the first 8 windows
+   of both sensors again on the CPU with E2VID's weights (channel images
+   within 1 grey level, the merge of the same channels bit-equal, merged
+   frames within 2); a steady color chunk profiled, and the merge timed
+   alone. Hist-eq: ``global``, ``clahe`` and ``local`` configs on phase
+   4's sequence (32 windows) on the card and (8 windows) on the CPU:
+   processed PNGs present, finite scores, frames within 1 grey level;
+   ``global``'s processed frames within 1 grey level on all but 1% of the
+   pixels and its score rows within 1e-3; ``clahe`` and ``local``, which
+   turn one grey level on a plateau into many, held instead to the host
+   equalizer on the card run's own frames (bit-equal) and to its scores
+   recomputed on the CPU (2e-5); ``global`` on 4 of phase 5's sequences in
+   lockstep against one at a time (frames within 1 grey level, processed
+   frames and rows held as ``global`` against the CPU); each equalizer's
+   host ms per frame. Resume: phase 4's run again
+   under ``EVREAL_RESUME=1`` skips with no launch and the recorded means;
+   with ``save_images`` changed it runs again. Video: with ffmpeg on PATH
+   a ``create_video`` run writes ``<dir>_<fps>Hz.mp4``; without it
+   ``evaluate`` raises the error naming ffmpeg before any launch (the line
+   says which case held);
+8. the ``kernels`` line: per ported kernel its launches on its path (and
+   per method and path in the methods and eval-config phases), error and
+   times beside its bound;
 
 then nvidia-smi's name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -435,7 +461,8 @@ def check_tree(out, n_windows, hw, decode_frames=True, may_skip=()):
 def phase_main_path(torch, vc, work, card, device="cuda"):
     from evreal_tpu_torch.convert.params import flatten, save_params
     from evreal_tpu_torch.harness.runner import (MethodBundle, evaluate,
-                                                 get_method_config)
+                                                 get_method_config,
+                                                 quantize_u8)
     from evreal_tpu_torch.harness.timers import TimingLog
     from evreal_tpu_torch.metrics.functional import mse, ssim
     from evreal_tpu_torch.models import flagship_e2vid_kwargs
@@ -500,7 +527,7 @@ def phase_main_path(torch, vc, work, card, device="cuda"):
         _, clipped = runner.post(raw)
         sc = runner.metric_scores([("mse", mse), ("ssim", ssim)], clipped,
                                   runner.upload({"r": refs})["r"])
-        res[dev] = {"raw": raw.cpu(), "u8": runner.quantize_u8(clipped).cpu(),
+        res[dev] = {"raw": raw.cpu(), "u8": quantize_u8(clipped).cpu(),
                     "scores": {k: v.cpu().numpy() for k, v in sc.items()}}
     recon_err = float((res[device]["raw"] - res["cpu"]["raw"]).abs().max())
     check(recon_err <= TOL_RECON,
@@ -1050,6 +1077,488 @@ def phase_methods(torch, vc, vox, work, card, device="cuda"):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the remaining eval configs (color, hist-eq, resume, videos)
+# ---------------------------------------------------------------------------
+
+COLOR_HW = (260, 346)   # CED's sensor, the dataset the color config is for
+COLOR_WINDOWS = 64
+COLOR_CHUNK_T = 16      # the color runner's default chunk
+ODD_HW = (259, 345)
+ODD_WINDOWS = 16
+HEQ_WINDOWS = 32
+HEQ_LANES = 4
+HEQ_MODES = ("global", "clahe", "local")
+CPU_WINDOWS = 8
+HEQ_SHARE = 0.01        # global hist-eq: processed frames card vs CPU more
+                        # than 1 grey level apart on at most this share
+TOL_RESCORE = 2e-5      # score rows (written to 5 decimals) against the
+                        # same scores recomputed on the CPU
+TOL_MERGE = 2           # merged frames, card vs CPU (grey levels)
+
+
+def check_color_tree(out, n_windows, hw):
+    """A color output tree: a timestamp row and a three-channel PNG per
+    window, the metric files present and empty (color is not scored)."""
+    from evreal_tpu_torch.harness.outputs import decode_png
+
+    stamps = read_rows(os.path.join(out, "timestamps.txt"))
+    check(sorted(stamps) == list(range(n_windows)),
+          f"{out}/timestamps.txt rows {len(stamps)} != {n_windows}")
+    for m in ("mse", "ssim"):
+        path = os.path.join(out, m + ".txt")
+        check(os.path.exists(path) and os.path.getsize(path) == 0,
+              f"{path}: a color run must leave it present and empty")
+    frames = []
+    for i in range(n_windows):
+        with open(os.path.join(out, f"frame_{i:010d}.png"), "rb") as f:
+            frames.append(decode_png(f.read()))
+    check(all(fr.shape == tuple(hw) + (3,) for fr in frames),
+          f"{out}: color PNGs are not {tuple(hw) + (3,)}")
+    return frames
+
+
+def capture_evaluate(vc, methods, config, dataset, label, device,
+                     switches=None):
+    """``evaluate`` with its stdout captured and the voxelizer's launch
+    counts set to 0 just before; fails on any contained exception.
+    Returns (results, launches by precision, steady ms/frame of the first
+    method, wall s, stdout)."""
+    import io
+    from contextlib import redirect_stdout
+
+    from evreal_tpu_torch.harness.runner import evaluate
+    from evreal_tpu_torch.harness.timers import TimingLog
+
+    timings, buf = TimingLog(), io.StringIO()
+    vc.reset_launches()
+    t0 = time.perf_counter()
+    with env(**(switches or {})), redirect_stdout(buf):
+        results = evaluate(methods, [config], [dataset], ["mse", "ssim"],
+                           device=device, timings=timings)
+    wall_s = time.perf_counter() - t0
+    launches = dict(vc.launches_by_precision)
+    contained(buf.getvalue(), label)
+    return (results, launches, timings.ms_per_frame(methods[0]), wall_s,
+            buf.getvalue())
+
+
+def write_eval_config(root, name, **changes):
+    from evreal_tpu_torch.harness.config import REPO_ROOT, read_json
+
+    cfg = read_json(os.path.join(REPO_ROOT, "config", "eval", "std.json"))
+    write_config(root, "eval", name, dict(cfg, **changes))
+
+
+def cut_after(seq_dir, n, num_bins):
+    """The end_time_s that keeps a sequence's first ``n`` windows."""
+    from evreal_tpu_torch.data import Sequence
+
+    metas = Sequence(seq_dir, num_bins=num_bins).windows()
+    return float(metas[n - 1]["voxel_timestamp"])
+
+
+def phase_color(torch, vc, vox, root, card, device):
+    """-c color, E2VID at its published width on a 260 x 346 sequence, and
+    FireNet+ at an odd 259 x 345; the color launch held to its plain
+    version and timed; the first windows again on the CPU; a profile."""
+    from evreal_tpu_torch.data import Sequence, pack_windows, plan_capacity
+    from evreal_tpu_torch.harness.runner import (MethodBundle,
+                                                 get_method_config)
+
+    b = ECD["b"]
+    res = {}
+    for method, ds, hw, n in (("E2VID", "CSYN", COLOR_HW, COLOR_WINDOWS),
+                              ("FireNet+", "CODD", ODD_HW, ODD_WINDOWS)):
+        want = {"highest": -(-n // COLOR_CHUNK_T), "default": 0}
+        _, launches, ms, wall_s, _ = capture_evaluate(
+            vc, [method], "color", ds, f"{method} color", device,
+            dict(EVREAL_DTYPE=None, EVREAL_WIRE=None, EVREAL_CHUNK_T=None))
+        check(launches == want, f"{method} color: voxelizer launches "
+              f"{launches}, want {want} (one HIGHEST launch per chunk of "
+              f"{COLOR_CHUNK_T} windows, f32 always)")
+        frames = check_color_tree(os.path.join(
+            "outputs", "color", ds, "seq0", method), n, hw)
+        res[method] = {"sensor": list(hw), "windows": n,
+                       "launches": launches, "ms_per_frame_steady": ms,
+                       "wall_s": wall_s,
+                       "frame_mean": float(np.mean([f.mean()
+                                                    for f in frames]))}
+
+    # the color launch (chunk 0, T = 16 at 260 x 346) on its own data
+    seq_dir = os.path.join(root, "data", "CSYN", "seq0")
+    seq = Sequence(seq_dir, num_bins=b)
+    cap = plan_capacity(m["event_count"] for m in seq.windows())
+    arrays = pack_windows(seq, list(range(COLOR_CHUNK_T)), capacity=cap)[0]
+    bufs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in arrays.items()}
+    err = hold_to_plain(torch, vox, bufs, b, COLOR_HW, "highest",
+                        "color launch")[0]
+    kernel = dict(time_variant(torch, vox, bufs, "highest", COLOR_HW, b),
+                  max_abs_err=err, capacity=cap, sensor=list(COLOR_HW))
+
+    # the first windows again: card against the plain CPU path, with
+    # E2VID's weights at both sensors (the random FireNet+ frames clip to
+    # black, which would leave the odd sensor's merge untested)
+    method_config = get_method_config("E2VID")
+    vs_cpu = {}
+    for ds, hw in (("CSYN", COLOR_HW), ("CODD", ODD_HW)):
+        first = pack_windows(Sequence(os.path.join(root, "data", ds, "seq0"),
+                                      num_bins=b),
+                             list(range(CPU_WINDOWS)))[0]
+        out, runners = {}, {}
+        for dev in (device, "cpu"):
+            runner = runners[dev] = MethodBundle(
+                "E2VID", method_config, dev).color_runner_for(
+                    hw, method_config, b)
+            vgrid = runner.voxel_stage(runner.upload(first))
+            _, chans, gray = runner.reconstruct(runner.init_state(), vgrid)
+            out[dev] = {"chans": chans.cpu(), "gray": gray.cpu(),
+                        "merged": runner.merge(chans, gray).cpu()}
+        chan_err = max(int((out[device][k].int() - out["cpu"][k].int())
+                           .abs().max()) for k in ("chans", "gray"))
+        check(chan_err <= 1, f"color channels card vs CPU at {hw}: "
+              f"{chan_err} grey levels > 1")
+        same = runners["cpu"].merge(out[device]["chans"],
+                                    out[device]["gray"])
+        check(torch.equal(same, out[device]["merged"]),
+              f"the merge of the same channels differs between card and "
+              f"CPU at {hw}")
+        d = (out[device]["merged"].int() - out["cpu"]["merged"].int()).abs()
+        check(int(d.max()) <= TOL_MERGE, f"merged frames card vs CPU at "
+              f"{hw}: {int(d.max())} grey levels > {TOL_MERGE}")
+        vs_cpu["x".join(map(str, hw))] = {
+            "windows": CPU_WINDOWS, "channels_max_diff": chan_err,
+            "merged_max_diff": int(d.max()),
+            "merged_share_differing": float((d > 0).float().mean()),
+            "merged_frame_mean": float(out[device]["merged"].float().mean())}
+        if hw == COLOR_HW:
+            card_runner = runners[device]
+
+    # one steady chunk under the profiler, and the merge alone
+    dev_bufs = card_runner.upload(arrays)
+    phase_profile(torch, card_runner, dev_bufs, COLOR_CHUNK_T, "color_e2vid")
+    _, chans, gray = card_runner.reconstruct(
+        card_runner.init_state(), card_runner.voxel_stage(dev_bufs))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    merge_ms = time_ms(torch, lambda: card_runner.post(
+        card_runner.merge(chans, gray)), flush)
+    chunk_ms = time_ms(torch, lambda: card_runner.run(
+        card_runner.init_state(), dev_bufs, COLOR_CHUNK_T), flush,
+        warmup=1, iters=5)
+    result = {"phase": "color", "card": card, "runs": res,
+              "kernel_at_color_launch": kernel,
+              "bit_equal_int64_plain": True, "e2vid_vs_cpu": vs_cpu,
+              "merge_post_ms_per_chunk": merge_ms,
+              "chunk_ms": chunk_ms,
+              "merge_share_of_chunk": merge_ms / chunk_ms}
+    emit(result)
+    return result
+
+
+def phase_histeq(torch, vc, root, card, device):
+    """global, clahe and local configs, single on the card and on the CPU
+    (the first windows), then global in 4-lane lockstep against single."""
+    from evreal_tpu_torch.harness import histeq
+
+    hw = (ECD["h"], ECD["w"])
+    res, rows = {}, {}
+    for mode in HEQ_MODES:
+        for dev, ds, n in ((device, "HEQ", HEQ_WINDOWS),
+                           ("cpu", "HEQ_CPU", CPU_WINDOWS)):
+            _, launches, ms, wall_s, _ = capture_evaluate(
+                vc, ["E2VID"], f"heq_{mode}", ds, f"hist-eq {mode} {dev}",
+                dev, dict(EVREAL_DTYPE=None, EVREAL_WIRE=None))
+            out = os.path.join("outputs", f"heq_{mode}", ds, "seq0", "E2VID")
+            scores, frames = check_tree(out, n, hw)
+            proc = [histeq_frame(out + "_processed", i) for i in range(n)]
+            rows[(mode, dev)] = (scores, frames, proc)
+            if dev == device:
+                want = {"highest": -(-n // CHUNK_T), "default": 0}
+                check(launches == want, f"hist-eq {mode}: voxelizer "
+                      f"launches {launches}, want {want}")
+                res[mode] = {"launches": launches, "ms_per_frame_steady": ms,
+                             "wall_s": wall_s}
+        ((card_scores, card_frames, card_proc),
+         (cpu_scores, cpu_frames, cpu_proc)) = (rows[(mode, device)],
+                                                rows[(mode, "cpu")])
+        first = range(CPU_WINDOWS)
+        frame_err = max(int(np.abs(card_frames[i].astype(int)
+                                   - cpu_frames[i].astype(int)).max())
+                        for i in first)
+        check(frame_err <= 1, f"hist-eq {mode}: frames card vs CPU differ by "
+              f"{frame_err} grey levels > 1")
+        d = np.stack([np.abs(card_proc[i].astype(int)
+                             - cpu_proc[i].astype(int)) for i in first])
+        score_err = max(abs(card_scores[m][i] - cpu_scores[m][i])
+                        for m in card_scores for i in cpu_scores[m])
+        res[mode].update(frames_max_diff_vs_cpu=frame_err,
+                         processed_max_diff_vs_cpu=int(d.max()),
+                         processed_share_over_1_vs_cpu=float((d > 1).mean()),
+                         score_max_abs_err_vs_cpu=score_err)
+        if mode == "global":
+            # equalize_hist sees the f32 frame, so its output moves about
+            # as smoothly as the frame does between card and CPU
+            check(res[mode]["processed_share_over_1_vs_cpu"] <= HEQ_SHARE,
+                  f"hist-eq global: processed frames card vs CPU: "
+                  f"{res[mode]['processed_share_over_1_vs_cpu']} of the "
+                  f"pixels differ by more than 1")
+            check(score_err <= TOL_SCORE, f"hist-eq global: score rows card "
+                  f"vs CPU {score_err} > {TOL_SCORE}")
+        else:
+            # CLAHE and the rank filter see the uint8 frame, and a frame
+            # one grey level apart on a plateau of equal values moves its
+            # rank or LUT entry by many levels; so the card run is held to
+            # the host equalizer on its own frames, bit for bit, and its
+            # score rows to the same scores recomputed on the CPU
+            redo_err, rescore_err = rescore_processed(
+                torch, os.path.join(os.path.dirname(root), "data", "SYN",
+                                    "seq0"),
+                card_frames, card_proc, card_scores, mode)
+            check(redo_err == 0, f"hist-eq {mode}: the card run's processed "
+                  f"frames differ from the equalizer on its own frames by "
+                  f"{redo_err}")
+            check(rescore_err <= TOL_RESCORE, f"hist-eq {mode}: the card's "
+                  f"score rows differ by {rescore_err} > {TOL_RESCORE} from "
+                  f"the CPU's scores of its processed frames")
+            res[mode].update(processed_redo_max_diff=redo_err,
+                             rescore_max_abs_err_cpu=rescore_err)
+
+    # global in lockstep (HEQ_LANES lanes) against each lane alone
+    lock = {}
+    for label, switches in (("lockstep", {}), ("single", {"EVREAL_BATCHED":
+                                                          "0"})):
+        _, launches, ms, wall_s, _ = capture_evaluate(
+            vc, ["E2VID"], "heq_global", "HEQ_LOCK", f"hist-eq {label}",
+            device, dict(EVREAL_DTYPE=None, EVREAL_WIRE=None, **switches))
+        per_chunk = -(-HEQ_WINDOWS // CHUNK_T)
+        want = {"highest": per_chunk * (1 if label == "lockstep"
+                                        else HEQ_LANES), "default": 0}
+        check(launches == want, f"hist-eq global {label}: launches "
+              f"{launches}, want {want}")
+        lanes = []
+        for j in range(HEQ_LANES):
+            out = os.path.join("outputs", "heq_global", "HEQ_LOCK",
+                               f"lane{j}", "E2VID")
+            scores, frames = check_tree(out, HEQ_WINDOWS, hw)
+            lanes.append((scores, frames, [
+                histeq_frame(out + "_processed", i)
+                for i in range(HEQ_WINDOWS)]))
+        lock[label] = {"launches": launches, "ms_per_frame_steady": ms,
+                       "wall_s": wall_s, "lanes": lanes}
+        os.rename(os.path.join("outputs", "heq_global", "HEQ_LOCK"),
+                  os.path.join("outputs", "heq_global", f"HEQ_LOCK_{label}"))
+    # the raw reconstructions agree within TOL_LOCKSTEP (phase 5), but
+    # equalize_hist's bin counts are discontinuous in its input: held like
+    # the card against the CPU above
+    pairs = list(zip(lock["lockstep"].pop("lanes"),
+                     lock["single"].pop("lanes")))
+    lock_frames = max(int(np.abs(f.astype(int) - g.astype(int)).max())
+                      for a, b in pairs for f, g in zip(a[1], b[1]))
+    lock_proc = float(np.mean([(np.abs(f.astype(int) - g.astype(int)) > 1)
+                               .mean() for a, b in pairs
+                               for f, g in zip(a[2], b[2])]))
+    lock_err = max(abs(a[0][m][i] - b[0][m][i])
+                   for a, b in pairs for m in a[0] for i in a[0][m])
+    check(lock_frames <= 1, f"hist-eq global lockstep vs single: frames "
+          f"{lock_frames} grey levels apart > 1")
+    check(lock_proc <= HEQ_SHARE, f"hist-eq global lockstep vs single: "
+          f"{lock_proc} of the processed pixels differ by more than 1")
+    check(lock_err <= TOL_SCORE, f"hist-eq global lockstep vs single "
+          f"rows {lock_err} > {TOL_SCORE}")
+
+    # host cost of each equalizer on one frame of the sequence
+    frame = np.clip(histeq_frame(os.path.join(
+        "outputs", "heq_global", "HEQ", "seq0", "E2VID"), 5) / 255.0, 0, 1)
+    host_ms = {}
+    for mode in HEQ_MODES:
+        histeq.histogram_equalization(frame, mode)  # builds the native lib
+        t0 = time.perf_counter()
+        for _ in range(10):
+            histeq.histogram_equalization(frame, mode)
+        host_ms[mode] = (time.perf_counter() - t0) * 100
+    result = {"phase": "histeq", "card": card, "method": "E2VID",
+              "sensor": list(hw), "windows": HEQ_WINDOWS, "runs": res,
+              "lockstep": lock,
+              "lockstep_vs_single": {
+                  "frames_max_diff": lock_frames,
+                  "processed_share_over_1": lock_proc,
+                  "score_max_abs_err": lock_err},
+              "equalizer_host_ms_per_frame": host_ms}
+    emit(result)
+    return result
+
+
+def rescore_processed(torch, seq_dir, frames, processed, scores, mode):
+    """A hist-eq run's own frames (of the sequence in ``seq_dir``)
+    equalized again on the host, and its processed frames scored again on
+    the CPU against the equalized references. Returns (max grey-level
+    difference of the processed PNGs, max abs difference of the score
+    rows)."""
+    from evreal_tpu_torch.data import Sequence
+    from evreal_tpu_torch.harness import histeq
+    from evreal_tpu_torch.harness.runner import equalized_refs
+    from evreal_tpu_torch.metrics import functional as metric_fns
+
+    redo = max(int(np.abs(np.round(np.clip(histeq.histogram_equalization(
+        f / 255.0, mode), 0, 1) * 255).astype(int) - p.astype(int)).max())
+        for f, p in zip(frames, processed))
+    seq = Sequence(seq_dir, num_bins=ECD["b"])
+    metas = seq.windows()
+    idx = sorted(scores["mse"])
+    imgs = torch.from_numpy(np.stack(
+        [(processed[i] / 255.0).astype(np.float32) for i in idx]))
+    refs = torch.from_numpy(equalized_refs(seq, [metas[i] for i in idx],
+                                           mode))
+    err = 0.0
+    for name, fn in metric_fns.resolve(["mse", "ssim"]):
+        got = fn(imgs, refs).numpy()
+        err = max(err, max(abs(scores[name][i] - float(g))
+                           for i, g in zip(idx, got)))
+    return redo, err
+
+
+def histeq_frame(folder, i):
+    from evreal_tpu_torch.harness.outputs import decode_png_gray8
+
+    path = os.path.join(folder, f"frame_{i:010d}.png")
+    check(os.path.exists(path), f"{path} missing")
+    with open(path, "rb") as f:
+        return decode_png_gray8(f.read())
+
+
+def phase_resume(torch, vc, work, card, device):
+    """Phase 4's single E2VID run again under EVREAL_RESUME=1: skipped, no
+    launch, the recorded means; with save_images changed it runs again."""
+    os.chdir(work)
+    done_path = os.path.join("outputs", "std", "SYN", "seq0", "E2VID",
+                             "done.json")
+    with open(done_path, encoding="utf-8") as f:
+        recorded = json.load(f)["mean_scores"]
+    switches = dict(EVREAL_RESUME="1", EVREAL_DTYPE=None, EVREAL_WIRE=None)
+    results, launches, _, wall_s, out = capture_evaluate(
+        vc, ["E2VID"], "std", "SYN", "resume", device, switches)
+    check("Skipping finished" in out, "EVREAL_RESUME did not skip phase 4's "
+          "finished run")
+    check(launches == {"highest": 0, "default": 0},
+          f"a resumed run launched the voxelizer: {launches}")
+    means = {m: results["std"][0][0].get_average(m) for m in recorded}
+    check(all(abs(means[m] - recorded[m]) <= 1e-12 for m in recorded),
+          f"resumed means {means} != recorded {recorded}")
+    # a changed output-affecting setting runs again
+    write_eval_config(work, "std", save_images=False)
+    try:
+        _, relaunch, _, _, out2 = capture_evaluate(
+            vc, ["E2VID"], "std", "SYN", "resume, save_images changed",
+            device, switches)
+    finally:
+        os.remove(os.path.join(work, "config", "eval", "std.json"))
+    n_chunks = -(-N_WINDOWS // CHUNK_T)
+    check("Skipping finished" not in out2 and relaunch == {
+        "highest": n_chunks, "default": 0},
+        f"a changed save_images must run again: launches {relaunch}")
+    result = {"phase": "resume", "card": card, "skipped_launches": launches,
+              "recorded_means": recorded, "resumed_means": means,
+              "skip_wall_s": wall_s, "changed_setting_launches": relaunch}
+    emit(result)
+    return result
+
+
+def phase_video(torch, vc, root, card, device):
+    """create_video: a non-empty <dir>_<fps>Hz.mp4 with ffmpeg on PATH;
+    without it, evaluate raises the named error before any launch."""
+    import shutil
+
+    os.chdir(root)
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        vc.reset_launches()
+        try:
+            from evreal_tpu_torch.harness.runner import evaluate
+
+            evaluate(["FireNet+"], ["vid"], ["HEQ"], ["mse"], device=device)
+        except RuntimeError as e:
+            check("ffmpeg" in str(e), f"create_video without ffmpeg raised "
+                  f"an error that does not name it: {e}")
+            error = str(e)
+        else:
+            fail("create_video without ffmpeg on PATH did not raise")
+        launches = dict(vc.launches_by_precision)
+        check(launches == {"highest": 0, "default": 0},
+              f"the ffmpeg check came after a launch: {launches}")
+        result = {"phase": "video", "card": card, "ffmpeg": None,
+                  "case": "no ffmpeg: evaluate raised before any launch",
+                  "error": error, "launches": launches}
+    else:
+        _, launches, _, wall_s, _ = capture_evaluate(
+            vc, ["FireNet+"], "vid", "HEQ", "video", device)
+        base = os.path.join("outputs", "vid", "HEQ", "seq0")
+        made = [f for f in os.listdir(base) if f.endswith("Hz.mp4")]
+        check(len(made) == 1 and os.path.getsize(os.path.join(
+            base, made[0])) > 0, f"create_video made {made} in {base}")
+        result = {"phase": "video", "card": card, "ffmpeg": ffmpeg,
+                  "case": "ffmpeg on PATH: video written", "video": made[0],
+                  "bytes": os.path.getsize(os.path.join(base, made[0])),
+                  "launches": launches, "wall_s": wall_s}
+    emit(result)
+    return result
+
+
+def phase_eval_configs(torch, vc, vox, work, card, device="cuda"):
+    """The eval configs of this slice: color (two sensors), hist-eq (three
+    modes, single and lockstep), resume, videos. Weights: phase 6's
+    E2VID and FireNet+ .pth files at their published widths."""
+    from evreal_tpu_torch.harness.config import REPO_ROOT, read_json
+
+    root = os.path.join(work, "eval_configs")
+    t0 = time.perf_counter()
+    for method in ("E2VID", "FireNet+"):
+        cfg = read_json(os.path.join(REPO_ROOT, "config", "method",
+                                     method + ".json"))
+        write_config(root, "method", method, dict(cfg, model_path=os.path.join(
+            work, "methods", "pretrained", method, "model.pth")))
+    for ds, hw, n in (("CSYN", COLOR_HW, COLOR_WINDOWS),
+                      ("CODD", ODD_HW, ODD_WINDOWS)):
+        make_sequence(os.path.join(root, "data", ds, "seq0"), *hw, n,
+                      EVENTS_PER_WINDOW, seed=11)
+        write_config(root, "dataset", ds,
+                     {"root_path": os.path.join(root, "data", ds),
+                      "sequences": {"seq0": {}}})
+    syn = os.path.join(work, "data", "SYN", "seq0")  # phase 4's sequence
+    for ds, n in (("HEQ", HEQ_WINDOWS), ("HEQ_CPU", CPU_WINDOWS)):
+        write_config(root, "dataset", ds, {"root_path": os.path.dirname(syn),
+                                           "sequences": {"seq0": {
+                                               "sequence_path": syn,
+                                               "end_time_s": cut_after(
+                                                   syn, n, ECD["b"])}}})
+    lock = os.path.join(work, "data", "LOCK")  # phase 5's sequences
+    write_config(root, "dataset", "HEQ_LOCK", {
+        "root_path": lock, "sequences": {
+            f"lane{j}": {"sequence_path": os.path.join(lock, f"seq{j:02d}"),
+                         "end_time_s": cut_after(os.path.join(
+                             lock, f"seq{j:02d}"), HEQ_WINDOWS, ECD["b"])}
+            for j in range(HEQ_LANES)}})
+    for mode in HEQ_MODES:
+        write_eval_config(root, f"heq_{mode}", histeq=mode)
+    write_eval_config(root, "vid", create_video=True)
+    setup_s = time.perf_counter() - t0
+    os.chdir(root)
+    color = phase_color(torch, vc, vox, root, card, device)
+    heq = phase_histeq(torch, vc, root, card, device)
+    resume = phase_resume(torch, vc, work, card, device)
+    video = phase_video(torch, vc, root, card, device)
+    result = {"phase": "eval_configs", "card": card, "setup_s": setup_s,
+              "color_ms_per_frame_steady": {
+                  m: r["ms_per_frame_steady"]
+                  for m, r in color["runs"].items()},
+              "histeq_ms_per_frame_steady": {
+                  m: r["ms_per_frame_steady"] for m, r in heq["runs"].items()},
+              "resume_skipped": True, "video_case": video["case"]}
+    emit(result)
+    return {"color": color, "histeq": heq, "resume": resume,
+            "video": video}
+
+
 def main():
     import torch
 
@@ -1079,10 +1588,25 @@ def main():
             main_res = phase_main_path(torch, vc, work, smi)
             lock = phase_lockstep(torch, vc, vox, work, smi)
             methods = phase_methods(torch, vc, vox, work, smi)
+            configs = phase_eval_configs(torch, vc, vox, work, smi)
         finally:
             os.chdir(cwd)
     by_method = methods["launches"]
     at_launch = methods["kernel_at_launch"]
+    color = configs["color"]
+    heq = configs["histeq"]
+    # the eval configs' paths, each read from its own run
+    by_method["E2VID"]["color_f32"] = color["runs"]["E2VID"]["launches"]
+    by_method.setdefault("FireNet+", {})["color_f32_odd_sensor"] = \
+        color["runs"]["FireNet+"]["launches"]
+    for mode, run in heq["runs"].items():
+        by_method["E2VID"][f"histeq_{mode}_single_f32"] = run["launches"]
+    for label, run in heq["lockstep"].items():
+        by_method["E2VID"][f"histeq_global_{HEQ_LANES}_lanes_{label}_f32"] = \
+            run["launches"]
+    by_method["E2VID"]["resume_skip"] = configs["resume"][
+        "skipped_launches"]
+    color_launch = color["kernel_at_color_launch"]
 
     def launch_errs(prec):
         return [v["max_abs_err"] for v in at_launch.values()
@@ -1108,7 +1632,8 @@ def main():
              "highest"],
          "max_abs_err": max(
              list(kern["max_abs_err"]["highest"].values())
-             + [lock["kernel_lockstep_max_abs_err"]["highest_f32"]]
+             + [lock["kernel_lockstep_max_abs_err"]["highest_f32"],
+                color_launch["max_abs_err"]]
              + launch_errs("highest")),
          "ms": f32_times["ms"], "plain_ms": f32_times["plain_ms"],
          "bound_ms": f32_times["bound_ms"], "bound_by": f32_times["bound_by"],
@@ -1116,12 +1641,15 @@ def main():
          "shape": [f32_times["windows"], ECD["e"]],
          "bit_equal_int64_plain": True,
          "launches_by_method": {m: {p: n["highest"] for p, n in v.items()
-                                    if n["highest"]}
+                                    if n["highest"] or p == "resume_skip"}
                                 for m, v in by_method.items()},
          "lockstep_f32": {k: lock_f32[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "windows")},
          "methods_launches": launch_times("highest"),
+         "color_launch": {k: color_launch[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "windows", "sensor", "capacity", "max_abs_err")},
          "card": smi},
         {"name": "voxelize_windows_bf16_factors", "route": "cuda",
          "source": source,

@@ -18,6 +18,11 @@ Per chunk of ``chunk_t`` windows:
 Lanes whose sequence has ended, and the windows past a lane's end in a
 ragged chunk, voxelize as empty windows (``count`` is cleared first) and
 their outputs are never read.
+
+Hist-eq configs equalize each lane's clipped frames and f32 references on
+the host and score the chunk's equalized (N, T) pairs in one device call.
+Under ``EVREAL_RESUME`` finished lanes are skipped and the rest run as a
+smaller group; each lane makes its own videos at the end.
 """
 
 import numpy as np
@@ -25,15 +30,20 @@ import torch
 
 from evreal_tpu_torch.data import pack_windows, plan_capacity
 from evreal_tpu_torch.data.packing import alloc_buffers, outlier_buffers
+from evreal_tpu_torch.harness.histeq import histogram_equalization
 from evreal_tpu_torch.harness.runner import (
     MethodRunner,
-    check_ported,
+    check_resume,
+    equalized_refs,
     event_dtypes,
+    finish_tracker,
     from_host,
     gate_windows,
     make_tracker,
+    quantize_u8,
     record_window,
     run_chunks,
+    score_on_device,
     to_host,
     usable_metrics,
 )
@@ -77,7 +87,15 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
     """Evaluate one method on N same-resolution sequences in lockstep.
     Returns ``[(num_evaluated, mean_scores)]`` aligned with
     ``sequences``."""
-    check_ported(eval_config)
+    done = [check_resume(eval_config, dataset_name, s, method_name, metrics)
+            for s in sequences]
+    if any(d is not None for d in done):
+        keep = [s for s, d in zip(sequences, done) if d is None]
+        rest = iter(eval_method_on_sequence_group(
+            dataset_name, eval_config, method_name, bundle, method_config,
+            keep, metrics, timings) if keep else [])
+        return [d if d is not None else next(rest) for d in done]
+    hist_eq = eval_config.get("histeq", "none")
     seqs = [s["dataset"] for s in sequences]
     n = len(seqs)
     resolution = tuple(seqs[0].sensor_resolution)
@@ -101,6 +119,9 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
     use = specs if any(seq.has_images for seq in seqs) else []
     ref_dtype = _ref_dtype(seqs, procs, metas_all)
     save_images = any(t.save_images for t in trackers)
+    # hist-eq: the clipped frames come to the host to be equalized
+    equalize = hist_eq != "none" and (
+        bool(use) or any(t.save_processed_images for t in trackers))
     state = runner.init_state()
 
     def load_refs(chunk_idxs, valid_t):
@@ -141,22 +162,46 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
         state, _, clipped = runner.run(state, runner.upload(bufs), valid_t)
         out = {}
         if save_images:
-            out["images"] = runner.quantize_u8(clipped)
-        if use:
+            out["images"] = quantize_u8(clipped)
+        if equalize:
+            out["clipped"] = clipped
+        elif use:
             refs = runner.upload({"r": load_refs(chunk_idxs, valid_t)})["r"]
             out.update(runner.metric_scores(use, clipped, refs))
         return ((chunk_idxs,) + to_host(out),
                 sum(len(idxs) for idxs in chunk_idxs))
 
+    def equalize_chunk(chunk_idxs, clipped, host):
+        """Equalized frames (N, T, H, W) of the lanes' windows; with
+        metrics, the equalized pairs' scores go into ``host``. Rows past a
+        lane's end and ref-less lanes stay zero (never recorded)."""
+        processed = np.zeros_like(clipped)
+        refs = np.zeros_like(clipped)
+        for j, idxs in enumerate(chunk_idxs):
+            for r in range(len(idxs)):
+                processed[j, r] = histogram_equalization(clipped[j, r],
+                                                         hist_eq)
+            if use and seqs[j].has_images and idxs:
+                refs[j, :len(idxs)] = equalized_refs(
+                    seqs[j], [metas_all[j][i] for i in idxs], hist_eq)
+        if use:
+            host.update(score_on_device(runner, use, processed, refs))
+        return processed
+
     def drain(entry):
         chunk_idxs, host, event = entry
         host = from_host(host, event)
         images = host.pop("images", None)
+        clipped = host.pop("clipped", None)
+        processed = (equalize_chunk(chunk_idxs, clipped, host)
+                     if clipped is not None else None)
         for j, idxs in enumerate(chunk_idxs):
             for r, i in enumerate(idxs):
                 record_window(trackers[j], seqs[j], i, metas_all[j][i],
                               images[j, r] if images is not None else None,
-                              {key: v[j, r] for key, v in host.items()})
+                              {key: v[j, r] for key, v in host.items()},
+                              processed[j, r] if processed is not None
+                              else None)
 
     timings = timings if timings is not None else TimingLog()
     max_chunks = max((-(-len(p) // chunk_t) for p in procs), default=0)
@@ -166,9 +211,9 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
 
     results, first_err = [], None
     for tracker in trackers:
-        # finalize every tracker even if one sequence's writer failed
+        # finish every tracker even if one sequence's writer failed
         try:
-            tracker.finalize()
+            finish_tracker(tracker, eval_config)
         except Exception as e:  # noqa: BLE001 — re-raised after the loop
             first_err = first_err or e
         results.append((tracker.get_num_quan_evaluations(),

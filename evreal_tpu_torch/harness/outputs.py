@@ -2,7 +2,8 @@
 byte-compatible with the reference (utils/eval_utils.py:57-84):
 ``timestamps.txt`` rows ``{idx} {ts:.15f}``, metric rows
 ``{idx} {score:.5f}``, frames ``frame_%010d.png`` holding
-``round(clip(img) * 255)`` as 8-bit grayscale.
+``round(clip(img) * 255)`` as 8-bit grayscale, or as 8-bit RGB for
+color frames (given in BGR order, as ``cv2.imwrite`` takes them).
 
 The PNG encoder is written with the standard library (``zlib`` +
 ``struct``), so the port needs no image library; the files decode to the
@@ -27,6 +28,16 @@ def _png_chunk(tag, data):
     return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
 
 
+def _encode_png(rows, width, height, color_type):
+    """PNG bytes of 8-bit ``rows`` (H, width * channels), no filtering."""
+    data = np.zeros((height, rows.shape[1] + 1), np.uint8)
+    data[:, 1:] = rows  # leading 0 of each row: filter type None
+    header = struct.pack(">IIBBBBB", width, height, 8, color_type, 0, 0, 0)
+    return (_PNG_SIGNATURE + _png_chunk(b"IHDR", header)
+            + _png_chunk(b"IDAT", zlib.compress(data.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+
+
 def encode_png_gray8(image):
     """(H, W) uint8 -> bytes of an 8-bit grayscale PNG (no filtering)."""
     image = np.ascontiguousarray(image)
@@ -34,20 +45,28 @@ def encode_png_gray8(image):
         raise ValueError(f"encode_png_gray8: want (H, W) uint8, got "
                          f"{image.shape} {image.dtype}")
     h, w = image.shape
-    rows = np.zeros((h, w + 1), np.uint8)  # leading 0: filter type None
-    rows[:, 1:] = image
-    header = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
-    return (_PNG_SIGNATURE + _png_chunk(b"IHDR", header)
-            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + _png_chunk(b"IEND", b""))
+    return _encode_png(image, w, h, 0)
 
 
-def decode_png_gray8(data):
-    """Pixels of an unfiltered 8-bit grayscale PNG, as ``encode_png_gray8``
-    writes them; checks the signature, the header and every chunk's CRC."""
+def encode_png_bgr8(image):
+    """(H, W, 3) uint8 in BGR order, as ``cv2.imwrite`` takes it -> bytes
+    of an 8-bit RGB PNG (colour type 2, no filtering)."""
+    image = np.ascontiguousarray(image)
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"encode_png_bgr8: want (H, W, 3) uint8, got "
+                         f"{image.shape} {image.dtype}")
+    h, w = image.shape[:2]
+    return _encode_png(image[..., ::-1].reshape(h, w * 3), w, h, 2)
+
+
+def decode_png(data):
+    """Pixels of an unfiltered 8-bit grayscale or RGB PNG, as this module
+    writes them: (H, W) grayscale, or (H, W, 3) in BGR order (as
+    ``cv2.imread`` returns it). Checks the signature, the header and every
+    chunk's CRC."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError("not a PNG")
-    pos, idat, shape = 8, b"", None
+    pos, idat, shape, channels = 8, b"", None, 1
     while pos < len(data):
         n = int.from_bytes(data[pos:pos + 4], "big")
         tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
@@ -56,24 +75,36 @@ def decode_png_gray8(data):
             raise ValueError(f"PNG chunk {tag!r}: bad CRC")
         if tag == b"IHDR":
             w, h, depth, color = struct.unpack(">IIBB", body[:10])
-            if (depth, color) != (8, 0):
-                raise ValueError("not an 8-bit grayscale PNG")
-            shape = (h, w)
+            if depth != 8 or color not in (0, 2):
+                raise ValueError("not an 8-bit grayscale or RGB PNG")
+            shape, channels = (h, w), 1 if color == 0 else 3
         elif tag == b"IDAT":
             idat += body
         pos += 12 + n
     rows = np.frombuffer(zlib.decompress(idat), np.uint8)
-    rows = rows.reshape(shape[0], shape[1] + 1)
+    rows = rows.reshape(shape[0], shape[1] * channels + 1)
     if rows[:, 0].any():
         raise ValueError("PNG rows use a filter this reader does not undo")
-    return rows[:, 1:]
+    if channels == 1:
+        return rows[:, 1:]
+    return rows[:, 1:].reshape(shape + (3,))[..., ::-1]
+
+
+def decode_png_gray8(data):
+    """Pixels of an unfiltered 8-bit grayscale PNG (``decode_png``)."""
+    pixels = decode_png(data)
+    if pixels.ndim != 2:
+        raise ValueError("not an 8-bit grayscale PNG")
+    return pixels
 
 
 def save_inferred_image(folder, image, idx):
-    """Write ``frame_{idx:010d}.png``; float images are quantized as
-    ``round(img * 255)`` (uint8 images are already quantized)."""
+    """Write ``frame_{idx:010d}.png``: 8-bit grayscale for (H, W), RGB for
+    (H, W, 3) BGR frames (as ``cv2.imwrite``); float images are quantized
+    as ``round(clip(img) * 255)`` (uint8 images are already quantized)."""
     arr = (image if image.dtype == np.uint8
-           else np.round(image * 255).astype(np.uint8))
+           else np.round(np.clip(image, 0, 1) * 255).astype(np.uint8))
+    encode = encode_png_gray8 if arr.ndim == 2 else encode_png_bgr8
     path = os.path.join(folder, "frame_{:010d}.png".format(idx))
     with open(path, "wb") as f:
-        f.write(encode_png_gray8(arr))
+        f.write(encode(arr))

@@ -1,7 +1,7 @@
-"""Evaluation loop of the grayscale path (``evreal_tpu/harness/runner.py``;
-reference eval.py:189-455): the single-sequence runner here, and the
-grouping that sends same-resolution sequences to the lockstep batched
-runner (``harness/batched.py``).
+"""Evaluation loop (``evreal_tpu/harness/runner.py``; reference
+eval.py:189-455): the single-sequence runner here, and the grouping that
+sends same-resolution sequences to the lockstep batched runner
+(``harness/batched.py``).
 
 Per chunk of ``chunk_t`` windows:
 
@@ -14,6 +14,17 @@ then the quantized frames and scores come back to the host, where the
 tracker writes the output tree. Chunk k's results are copied back
 asynchronously and written while chunk k + 1 runs on the device.
 
+Color configs (``models/colornet.py:ColorRunner``, one sequence at a time):
+one voxelizer launch per chunk in f32, the four Bayer channels as a
+batch-4 state and the grayscale as batch 1, the uint8 merge and the
+post-norm of the merged frames on the device; frames are saved and not
+scored. Hist-eq configs (``harness/histeq.py``) bring the clipped frames
+to the host, equalize them and the f32 references there, and score the
+equalized pair on the device with the same metric functions.
+``EVREAL_RESUME=1`` skips sequences whose ``done.json`` records a finished
+run under the same settings; ``create_video`` encodes each sequence's
+frames with ffmpeg at the end (``harness/video.py``).
+
 The JAX package's switches, with its parsing and errors:
 ``EVREAL_DTYPE`` (float32 | bfloat16 serving mode), ``EVREAL_WIRE``
 (f32 | compact | compact4, checked once at the start of ``evaluate``),
@@ -23,8 +34,7 @@ the voxelizer and raises), ``EVREAL_BATCHED`` (lockstep groups, on unless
 last two are parsed at import, as there.
 
 Every method config runs (``models/``, weights from a converted ``.npz``
-or a reference ``.pth``). Out of scope so far (ROADMAP.md, Queue 1):
-color, hist-eq, videos and resume raise ``NotImplementedError``. The
+or a reference ``.pth``). The
 TPU-only levers (staging, mesh, S2D, UPFUSE, scan unroll) have no
 counterpart: a group runs on the one device it is given.
 """
@@ -54,14 +64,23 @@ from evreal_tpu_torch.harness.config import (
     get_method_config,
     REPO_ROOT,
 )
+from evreal_tpu_torch.harness.histeq import histogram_equalization
 from evreal_tpu_torch.harness.tables import (
     color_error,
     color_progress,
     print_scores,
 )
 from evreal_tpu_torch.harness.timers import DeviceTimer, TimingLog
+from evreal_tpu_torch.harness.video import require_ffmpeg
 from evreal_tpu_torch.metrics import functional as metric_fns
-from evreal_tpu_torch.metrics.tracker import EvalMetricsTracker, MetricTracker
+from evreal_tpu_torch.metrics.tracker import (
+    EvalMetricsTracker,
+    MetricTracker,
+    load_completed,
+    resume_enabled,
+    resume_settings,
+    sequence_settings,
+)
 from evreal_tpu_torch.models import build_from_meta
 from evreal_tpu_torch.ops.normalize import (
     normalize_event_tensor,
@@ -69,7 +88,12 @@ from evreal_tpu_torch.ops.normalize import (
 )
 from evreal_tpu_torch.ops.pad import CropParams
 from evreal_tpu_torch.ops.voxelize import voxelize_windows
-from evreal_tpu_torch.utils import f32_parity, resolve_device
+from evreal_tpu_torch.utils import (
+    U8_LUT,
+    f32_parity,
+    resolve_device,
+    upload,
+)
 
 # parsed at import, as in the JAX package (runner.py:46-50), so a malformed
 # value fails at once rather than inside the per-dataset containment
@@ -77,11 +101,6 @@ DEFAULT_CHUNK_T = int(os.environ.get("EVREAL_CHUNK_T", "32"))
 DEFAULT_BATCH_N = int(os.environ.get("EVREAL_BATCH_N", "0"))
 PIPELINE_DEPTH = 2  # chunks in flight before the host drains the oldest
 DEFAULT_METRICS = ["mse", "ssim"]
-
-# uint8 reference frames -> f32 by a table of host-computed (IEEE) x / 255,
-# the values Sequence.frame produces: a device divide by 255 may become a
-# reciprocal multiply, 1 ulp off for some values
-_U8_LUT = np.arange(256, dtype=np.float32) / np.float32(255.0)
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +168,12 @@ def make_voxel_stage(num_bins, hw, event_norm, out_dtype=torch.float32):
     return stage
 
 
+def quantize_u8(clipped):
+    """``round(clip(img) * 255)`` as uint8 (round half to even, like the
+    JAX package's device quantization)."""
+    return torch.round(clipped * 255).to(torch.uint8)
+
+
 class MethodRunner:
     """Chunked eval pipeline for one (model, sensor resolution) on one
     device, over ``lanes`` sequences at once (1 here; the lockstep
@@ -166,7 +191,7 @@ class MethodRunner:
         self.num_bins = num_bins
         self.chunk_t = DEFAULT_CHUNK_T if chunk_t is None else chunk_t
         self.crop = CropParams(width, height, model.num_encoders)
-        self.u8_lut = torch.from_numpy(_U8_LUT).to(self.device)
+        self.u8_lut = torch.from_numpy(U8_LUT).to(self.device)
         self.voxel_stage = make_voxel_stage(num_bins, (height, width),
                                             event_norm, self.dtype)
 
@@ -176,15 +201,7 @@ class MethodRunner:
                                      dtype=self.dtype)
 
     def upload(self, arrays):
-        """Numpy arrays -> device tensors (pinned, non-blocking on CUDA;
-        the pinned staging copy frees the numpy buffers for reuse)."""
-        out = {}
-        for k, v in arrays.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
-        return out
+        return upload(arrays, self.device)
 
     def voxelize(self, bufs):
         """Device event buffers (any wire) -> ``(T, num_bins, H, W)`` input
@@ -225,12 +242,6 @@ class MethodRunner:
         vox = self.voxelize(bufs)
         state, imgs = self.reconstruct(state, vox[:valid_t])
         return (state,) + self.post(imgs)
-
-    @staticmethod
-    def quantize_u8(clipped):
-        """``round(clip(img) * 255)`` as uint8 (round half to even, like
-        the JAX package's device quantization)."""
-        return torch.round(clipped * 255).to(torch.uint8)
 
     @torch.no_grad()
     def metric_scores(self, specs, clipped, refs):
@@ -316,6 +327,23 @@ class MethodBundle:
                             BatchedRunner, sensor_resolution, method_config,
                             num_bins, n=n)
 
+    def color_runner_for(self, sensor_resolution, method_config, num_bins):
+        """The f32 ``ColorRunner`` of the full sensor resolution (the
+        model's own weights: the color path is never cast to bf16)."""
+        from evreal_tpu_torch.models.colornet import ColorRunner
+
+        key = ("color",) + tuple(sensor_resolution)
+        if key not in self._runners:
+            h, w = sensor_resolution
+            stage = make_voxel_stage(
+                num_bins, (h, w),
+                method_config.get("event_tensor_normalization", False))
+            self._runners[key] = ColorRunner(
+                self.model, height=h, width=w, voxel_stage=stage,
+                post_norm=method_config.get("post_process_norm", "none"),
+                device=self.device)
+        return self._runners[key]
+
 
 # ---------------------------------------------------------------------------
 # sequence / dataset assembly (reference eval.py:38-106)
@@ -386,27 +414,33 @@ def gate_windows(metas, start, end, eval_infer_all):
     return proc
 
 
-def run_settings(eval_config, sequence):
-    """The output-affecting settings recorded in done.json."""
-    return {"save_images": eval_config.get("save_images", True),
-            "histeq": eval_config.get("histeq", "none"),
-            "create_video": eval_config.get("create_video", False),
-            "eval_infer_all": eval_config.get("eval_infer_all", False),
-            "color": eval_config.get("color", False),
-            "ts_tol_ms": eval_config.get("ts_tol_ms", float("inf")),
-            "start_time_s": sequence.get("start_time_s"),
-            "end_time_s": sequence.get("end_time_s")}
+def check_resume(eval_config, dataset_name, sequence, method_name,
+                 metrics):
+    """``EVREAL_RESUME``: the recorded (count, mean scores) of a finished
+    run of this sequence under the same settings, with the skip line
+    printed, else None (and always None without the switch). Ref-less
+    sequences record no metric (every ported metric needs a reference)."""
+    if not resume_enabled():
+        return None
+    output_dir = sequence_output_dir(eval_config, dataset_name,
+                                     sequence["name"], method_name)
+    expected = ([name for name, _ in metric_fns.resolve(metrics)]
+                if sequence["dataset"].has_images else [])
+    done = load_completed(output_dir, expected, sequence_settings(
+        resume_settings(eval_config), sequence))
+    if done is not None:
+        print(f"Skipping finished {output_dir} (EVREAL_RESUME)")
+    return done
 
 
-def check_ported(eval_config):
-    """Raise for the eval settings the port does not run yet."""
-    if (eval_config.get("color", False) or eval_config.get("create_video")
-            or eval_config.get("histeq", "none") != "none"):
-        raise NotImplementedError("color, hist-eq and video eval configs "
-                                  "are not ported yet (ROADMAP.md, Queue 1)")
-    if os.environ.get("EVREAL_RESUME", "0").lower() in ("1", "true", "yes"):
-        raise NotImplementedError("EVREAL_RESUME is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 6)")
+def check_color_histeq(eval_config):
+    """A color config may equalize only globally: CLAHE and the local rank
+    filter take one channel (the reference rejects three as well). Raised
+    before the sequence runs (the JAX package raises at its first frame)."""
+    hist_eq = eval_config.get("histeq", "none")
+    if eval_config.get("color", False) and hist_eq in ("clahe", "local"):
+        raise ValueError(f"histeq '{hist_eq}' supports grayscale images "
+                         f"only")
 
 
 def usable_metrics(metrics, hw, device):
@@ -438,7 +472,19 @@ def make_tracker(eval_config, dataset_name, sequence, method_name, metrics):
         quan_eval_end_time=sequence["end_time_s"],
         quan_eval_ts_tol_ms=eval_config["ts_tol_ms"],
         has_reference_frames=seq.has_images,
-        run_settings=run_settings(eval_config, sequence))
+        run_settings=sequence_settings(resume_settings(eval_config),
+                                       sequence),
+        hist_eq=eval_config.get("histeq", "none"),
+        color=eval_config.get("color", False))
+
+
+def finish_tracker(tracker, eval_config):
+    """Close a sequence's outputs, then make its videos when asked."""
+    tracker.finalize()
+    if eval_config.get("create_video", False):
+        tracker.create_video()
+        if eval_config.get("histeq", "none") != "none":
+            tracker.create_processed_video()
 
 
 def event_dtypes(seqs):
@@ -458,11 +504,27 @@ def reference_frames(seq, metas):
     return np.stack([seq.frame(m["frame_index"]) for m in metas])
 
 
-def record_window(tracker, seq, i, meta, image, scores):
-    """One window's frame, scores and event rate into its tracker."""
+def equalized_refs(seq, metas, hist_eq):
+    """The windows' f32 reference frames (``Sequence.frame``), clipped and
+    equalized on the host."""
+    return np.stack([histogram_equalization(
+        np.clip(seq.frame(m["frame_index"]), 0, 1), hist_eq) for m in metas])
+
+
+def score_on_device(runner, specs, imgs, refs):
+    """{name: numpy scores} of host images ``imgs`` against ``refs`` (...,
+    H, W), scored on the runner's device with its metric functions."""
+    dev = runner.upload({"i": imgs, "r": refs})
+    scores = runner.metric_scores(specs, dev["i"], dev["r"])
+    return {k: v.cpu().numpy() for k, v in scores.items()}
+
+
+def record_window(tracker, seq, i, meta, image, scores, processed=None):
+    """One window's frame, scores, hist-eq'd copy and event rate into its
+    tracker."""
     tracker.update(i, image, meta["voxel_timestamp"],
                    meta["frame_timestamp"] if seq.has_images else None,
-                   scores=scores)
+                   scores=scores, processed_img=processed)
     rate = (0 if meta["event_count"] <= 1 or meta["dt"] == 0
             else meta["event_count"] / meta["dt"])
     tracker.save_custom_metric(i, "event_rate", rate)
@@ -510,12 +572,23 @@ def run_chunks(n_chunks, dispatch, drain, timer):
 
 def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
                             method_config, sequence, metrics, timings=None):
-    check_ported(eval_config)
+    done = check_resume(eval_config, dataset_name, sequence, method_name,
+                        metrics)
+    if done is not None:
+        return done
+    check_color_histeq(eval_config)
     seq = sequence["dataset"]
-    runner = bundle.runner_for(seq.sensor_resolution, method_config,
-                               seq.num_bins)
+    color = eval_config.get("color", False)
+    hist_eq = eval_config.get("histeq", "none")
+    if color:
+        runner = bundle.color_runner_for(seq.sensor_resolution,
+                                         method_config, seq.num_bins)
+    else:
+        runner = bundle.runner_for(seq.sensor_resolution, method_config,
+                                   seq.num_bins)
     device = runner.device
-    specs = usable_metrics(metrics, seq.sensor_resolution, device)
+    specs = ([] if color
+             else usable_metrics(metrics, seq.sensor_resolution, device))
     tracker = make_tracker(eval_config, dataset_name, sequence, method_name,
                            metrics)
 
@@ -528,6 +601,10 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
     dtypes = event_dtypes([seq])
     pool = alloc_buffers((chunk_t,), capacity, dtypes)
     use = specs if seq.has_images else []
+    # hist-eq: the clipped frames come to the host to be equalized (and
+    # scored against equalized references, or saved under _processed)
+    equalize = hist_eq != "none" and (
+        bool(use) or tracker.save_processed_images)
     state = runner.init_state()
 
     def dispatch(k):
@@ -548,8 +625,10 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
         state, _, clipped = runner.run(state, runner.upload(bufs), valid_t)
         out = {}
         if tracker.save_images:
-            out["images"] = runner.quantize_u8(clipped)
-        if use:
+            out["images"] = quantize_u8(clipped)
+        if equalize:
+            out["clipped"] = clipped
+        elif use:
             refs = runner.upload({"refs": reference_frames(seq, metas)})
             out.update(runner.metric_scores(use, clipped, refs["refs"]))
         return (chunk, metas) + to_host(out), valid_t
@@ -558,16 +637,25 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
         chunk, metas, host, event = entry
         host = from_host(host, event)
         images = host.pop("images", None)
+        clipped = host.pop("clipped", None)
+        processed = None
+        if clipped is not None:
+            processed = [histogram_equalization(c, hist_eq) for c in clipped]
+            if use:
+                host.update(score_on_device(
+                    runner, use, np.stack(processed),
+                    equalized_refs(seq, metas, hist_eq)))
         for j, (i, meta) in enumerate(zip(chunk, metas)):
             record_window(tracker, seq, i, meta,
                           images[j] if images is not None else None,
-                          {k: v[j] for k, v in host.items()})
+                          {k: v[j] for k, v in host.items()},
+                          processed[j] if processed is not None else None)
 
     timings = timings if timings is not None else TimingLog()
     n_chunks = -(-len(proc) // chunk_t)
     with DeviceTimer(timings, method_name, len(proc), device) as timer:
         run_chunks(n_chunks, dispatch, drain, timer)
-    tracker.finalize()
+    finish_tracker(tracker, eval_config)
     return tracker.get_num_quan_evaluations(), tracker.get_mean_scores()
 
 
@@ -677,9 +765,15 @@ def evaluate(method_names=None, eval_config_names=None, dataset_names=None,
     metrics = metrics or DEFAULT_METRICS
     metric_fns.resolve(metrics)  # an unknown or unported name fails here
     timings = timings if timings is not None else TimingLog()
+    eval_configs = get_eval_configs(eval_config_names)
+    for eval_config in eval_configs:
+        # before any work: a missing ffmpeg would otherwise fail each
+        # sequence inside the per-dataset containment, after its run
+        if eval_config.get("create_video", False):
+            require_ffmpeg()
     dataset_configs = get_dataset_configs(dataset_names)
     results = {}
-    for eval_config in get_eval_configs(eval_config_names):
+    for eval_config in eval_configs:
         datasets = get_datasets(dataset_configs,
                                 eval_config.get("dataset_kwargs", {}))
         info = (f"evaluating {', '.join(method_names)} on "

@@ -2,19 +2,68 @@
 reference utils/eval_metrics.py:162-350 and eval.py:249-276).
 
 ``EvalMetricsTracker`` writes the reference's output tree — timestamps,
-per-metric score rows, PNG frames — gates quantitative evaluation on the
-eval time window and the image/reference timestamp tolerance, drops
-non-finite scores, and reports the ``-1`` no-result sentinel for a metric
-with no scores (kept out of dataset means by the caller). It also writes
-the JAX package's ``done.json`` completion record. Hist-eq, color, videos
-and resume are not ported yet.
+per-metric score rows, PNG frames, hist-eq'd copies under
+``<dir>_processed`` — gates quantitative evaluation on the eval time window
+and the image/reference timestamp tolerance, drops non-finite scores, and
+reports the ``-1`` no-result sentinel for a metric with no scores (kept out
+of dataset means by the caller). In color mode it saves frames and records
+no scores (the metric files stay empty). It writes the JAX package's
+``done.json`` completion record, which ``EVREAL_RESUME`` reads back
+(``load_completed``), and makes the folder's videos.
 """
 
 import json
 import math
 import os
+import shutil
 
 from evreal_tpu_torch.harness.outputs import save_inferred_image, truncate
+from evreal_tpu_torch.harness.video import create_vid_from_recon_folder
+
+
+def resume_enabled():
+    """``EVREAL_RESUME=1``: finished (config, dataset, sequence, method)
+    output dirs, marked by the ``done.json`` that ``finalize`` writes, are
+    skipped and their recorded scores reused."""
+    return os.environ.get("EVREAL_RESUME", "0").lower() in ("1", "true",
+                                                            "yes")
+
+
+def resume_settings(eval_config):
+    """The output-affecting eval-config subset recorded in ``done.json``: a
+    rerun whose settings differ (say, save_images newly on) runs again."""
+    return {"save_images": eval_config.get("save_images", True),
+            "histeq": eval_config.get("histeq", "none"),
+            "create_video": eval_config.get("create_video", False),
+            "eval_infer_all": eval_config.get("eval_infer_all", False),
+            "color": eval_config.get("color", False),
+            "ts_tol_ms": eval_config.get("ts_tol_ms", float("inf"))}
+
+
+def sequence_settings(settings, sequence):
+    """``settings`` plus the sequence's quantitative-eval time window,
+    which is as score-affecting as ts_tol_ms."""
+    return {**settings,
+            "start_time_s": sequence.get("start_time_s"),
+            "end_time_s": sequence.get("end_time_s")}
+
+
+def load_completed(output_dir, expected_metrics, settings=None):
+    """(num_evaluated, mean_scores) of a finished run in ``output_dir``
+    that covers ``expected_metrics`` under the same ``settings``, else
+    None."""
+    try:
+        with open(os.path.join(output_dir, "done.json"),
+                  encoding="utf-8") as f:
+            data = json.load(f)
+        if not set(expected_metrics) <= set(data["metrics"]):
+            return None
+        if settings is not None and data.get("settings") != settings:
+            return None
+        return int(data["num_evaluated"]), {
+            m: float(data["mean_scores"][m]) for m in expected_metrics}
+    except (OSError, ValueError, KeyError, TypeError):
+        return None
 
 
 class MetricTracker:
@@ -46,9 +95,13 @@ class EvalMetricsTracker:
     def __init__(self, output_dir, metric_names, save_images=True,
                  quan_eval_start_time=0, quan_eval_end_time=float("inf"),
                  quan_eval_ts_tol_ms=float("inf"),
-                 has_reference_frames=False, run_settings=None):
+                 has_reference_frames=False, run_settings=None,
+                 hist_eq="none", color=False):
         self.output_dir = output_dir
         self.save_images = save_images
+        self.save_processed_images = save_images and hist_eq != "none"
+        self.processed_output_dir = output_dir + "_processed"
+        self.color = color
         self.start_time = quan_eval_start_time
         self.end_time = quan_eval_end_time
         self.ts_tol_ms = quan_eval_ts_tol_ms
@@ -60,6 +113,8 @@ class EvalMetricsTracker:
         self._files = {}
         self._custom = set()
         os.makedirs(output_dir, exist_ok=True)
+        if self.save_processed_images:
+            os.makedirs(self.processed_output_dir, exist_ok=True)
         try:  # a fresh run invalidates any earlier completion record
             os.remove(self._path("done.json"))
         except FileNotFoundError:
@@ -78,17 +133,23 @@ class EvalMetricsTracker:
             self._files[name] = f
         f.write(line)
 
-    def update(self, idx, img_u8, img_ts, ref_ts=None, scores=None):
+    def update(self, idx, img_u8, img_ts, ref_ts=None, scores=None,
+               processed_img=None):
         """Record one frame: ``img_u8`` the quantized frame (or None when
-        images are not saved), ``scores`` {metric: value} for it."""
+        images are not saved), ``scores`` {metric: value} for it,
+        ``processed_img`` its hist-eq'd copy (f32 in [0, 1]) when the
+        config equalizes."""
         if ref_ts is None:
             ref_ts = img_ts
         self._append("timestamps.txt", "{} {:.15f}\n".format(idx, img_ts))
         if img_u8 is not None and self.save_images:
             save_inferred_image(self.output_dir, img_u8, idx)
+        if processed_img is not None and self.save_processed_images:
+            save_inferred_image(self.processed_output_dir, processed_img,
+                                idx)
         inside_cut = self.start_time <= img_ts <= self.end_time
         tol_ok = abs(ref_ts - img_ts) * 1000 <= self.ts_tol_ms
-        if inside_cut and tol_ok and scores is not None:
+        if inside_cut and tol_ok and not self.color and scores is not None:
             self.quan_eval_indices.append(idx)
             for name in self.metric_names:
                 if name not in scores:
@@ -125,3 +186,18 @@ class EvalMetricsTracker:
     def get_mean_scores(self):
         return {name: (sum(v) / len(v) if v else -1)
                 for name, v in self.scores.items()}
+
+    def create_video(self):
+        if self.save_images:
+            create_vid_from_recon_folder(self.output_dir)
+        else:
+            print("Can not create video when save_images is False")
+
+    def create_processed_video(self):
+        if self.save_processed_images:
+            shutil.copy2(self._path("timestamps.txt"),
+                         self.processed_output_dir)
+            create_vid_from_recon_folder(self.processed_output_dir)
+        else:
+            print("Can not create processed video when "
+                  "save_processed_images is False")

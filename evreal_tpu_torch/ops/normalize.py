@@ -5,14 +5,16 @@
     FireNet), with the variance clamped at 0;
   * ``post_process_normalization`` — none / robust (1-99 pct) / standard
     (0-100 pct) / exprobust image normalization (reference eval.py:380-395)
-    with exact percentiles (``ops/percentile.py``).
+    with exact percentiles (``ops/percentile.py``);
+  * ``post_process_normalization_frames`` — the same four on merged color
+    frames, with numpy's percentile rule.
 
-Both take a leading batch dimension: each item is normalized on its own.
+All take a leading batch dimension: each item is normalized on its own.
 """
 
 import torch
 
-from evreal_tpu_torch.ops.percentile import percentiles
+from evreal_tpu_torch.ops.percentile import numpy_percentiles, percentiles
 
 
 def normalize_event_tensor(voxel):
@@ -53,3 +55,22 @@ def post_process_normalization(img, norm):
     if norm == "none" or norm is None:
         return img
     raise ValueError(f"Unrecognized normalization argument: {norm}")
+
+
+def post_process_normalization_frames(frames, norm):
+    """The post-norm of merged color frames (N, H, W, 3) f32, each frame
+    over all of its channels with numpy's f32 percentile rule
+    (``post_process_normalization_np``, evreal_tpu/harness/runner.py:274-
+    287, which the JAX package runs on the host)."""
+    if norm == "none" or norm is None:
+        return frames
+    if norm == "exprobust":
+        frames = torch.exp(frames)
+        norm = "robust"
+    if norm not in ("robust", "standard"):
+        raise ValueError(f"Unrecognized image normalization: {norm}")
+    qs = (1, 99) if norm == "robust" else (0, 100)
+    stats = numpy_percentiles(frames.reshape(frames.shape[0], -1), qs)
+    shape = (-1,) + (1,) * (frames.dim() - 1)
+    lo, hi = stats[:, 0].view(shape), stats[:, 1].view(shape)
+    return (frames - lo) / (hi - lo)

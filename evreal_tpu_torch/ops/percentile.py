@@ -39,15 +39,27 @@ def order_stats(x, ks):
     return torch.gather(x, -1, pick)
 
 
+def _gather_plans(x, plans):
+    """Order statistics of f32 ``x`` (..., n) at the plans' ranks:
+    {rank: values (...)}."""
+    ks = sorted({k for plan in plans for k in plan[:2]})
+    vals = order_stats(x, ks)
+    return {k: vals[..., i] for i, k in enumerate(ks)}
+
+
+def _nan_guard(x, out):
+    nan = torch.isnan(x).any(dim=-1, keepdim=True)
+    return torch.where(nan, torch.full_like(out, float("nan")), out)
+
+
 def percentiles(x, qs):
     """``np.percentile(x, q)`` (linear) for each q in ``qs`` along the last
-    axis of f32 ``x`` (..., n) -> (..., len(qs)) f32."""
+    axis of f32 ``x`` (..., n) -> (..., len(qs)) f32, interpolated as
+    ``lw * lo + hw * hi`` (``jnp.percentile``'s rule)."""
     x = x.to(torch.float32)
     n = x.shape[-1]
     plans = [rank_weights(q, n) for q in qs]
-    ks = sorted({k for k0, k1, _, _ in plans for k in (k0, k1)})
-    vals = order_stats(x, ks)
-    stats = {k: vals[..., i] for i, k in enumerate(ks)}
+    stats = _gather_plans(x, plans)
     outs = []
     for k0, k1, lw, hw in plans:
         if hw == 0.0:
@@ -56,6 +68,42 @@ def percentiles(x, qs):
             lw_t = torch.tensor(lw, dtype=torch.float32, device=x.device)
             hw_t = torch.tensor(hw, dtype=torch.float32, device=x.device)
             outs.append(stats[k0] * lw_t + stats[k1] * hw_t)
-    out = torch.stack(outs, dim=-1)
-    nan = torch.isnan(x).any(dim=-1, keepdim=True)
-    return torch.where(nan, torch.full_like(out, float("nan")), out)
+    return _nan_guard(x, torch.stack(outs, dim=-1))
+
+
+def numpy_rank_plan(q, n):
+    """(low_rank, high_rank, gamma) of numpy's own f32 ``np.percentile``
+    (numpy 2, method "linear"): the quantile ``f32(q) / 100`` and the
+    virtual index ``(n - 1) * q`` in f32, its floor and fraction, ranks
+    clamped to the array."""
+    qf = np.float32(q) / np.float32(100)
+    virtual = np.float32(n - 1) * qf
+    low = np.floor(virtual)
+    gamma = np.float32(virtual - low)
+    if virtual >= n - 1:
+        return n - 1, n - 1, gamma
+    if virtual < 0:
+        return 0, 0, gamma
+    return int(low), int(low) + 1, gamma
+
+
+def numpy_percentiles(x, qs):
+    """``np.percentile(x, q)`` of f32 ``x`` along its last axis, as numpy
+    computes it for f32 input: ranks by ``numpy_rank_plan`` and numpy's
+    lerp, ``lo + (hi - lo) * g`` for g < 0.5, else ``hi - (hi - lo) * (1 -
+    g)``, in f32. Returns (..., len(qs)) f32."""
+    x = x.to(torch.float32)
+    plans = [numpy_rank_plan(q, x.shape[-1]) for q in qs]
+    stats = _gather_plans(x, plans)
+    outs = []
+    for k0, k1, gamma in plans:
+        lo, hi = stats[k0], stats[k1]
+        diff = hi - lo
+        if gamma < 0.5:
+            g = torch.tensor(gamma, dtype=torch.float32, device=x.device)
+            outs.append(lo + diff * g)
+        else:
+            g = torch.tensor(np.float32(1) - gamma, dtype=torch.float32,
+                             device=x.device)
+            outs.append(hi - diff * g)
+    return _nan_guard(x, torch.stack(outs, dim=-1))

@@ -1,8 +1,14 @@
-"""Device selection and the f32 parity precision context."""
+"""Device selection, uploads and the f32 parity precision context."""
 
 import contextlib
 
+import numpy as np
 import torch
+
+# uint8 frames -> f32 by a table of host-computed (IEEE) x / 255, the values
+# numpy's ``u8 / 255.0`` gives: a device divide by 255 may become a
+# reciprocal multiply, 1 ulp off for some values
+U8_LUT = np.arange(256, dtype=np.float32) / np.float32(255.0)
 
 
 def resolve_device(device=None):
@@ -31,3 +37,17 @@ def f32_parity():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def upload(arrays, device):
+    """{name: numpy array} -> {name: tensor on ``device``} (pinned and
+    non-blocking on CUDA; the pinned staging copy frees the numpy buffers
+    for reuse)."""
+    device = torch.device(device)
+    out = {}
+    for k, v in arrays.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out

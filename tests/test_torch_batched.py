@@ -274,15 +274,19 @@ def test_chunk_t_and_batch_n_parse_at_import(env, want):
 
 
 def test_unported_settings_raise(inputs, tmp_path, monkeypatch):
+    """What the port still lacks raises in a group: a metric waiting for
+    its weights (ROADMAP). Hist-eq and EVREAL_RESUME, unported before,
+    now run (tests/test_torch_histeq.py, tests/test_torch_resume.py)."""
     cfg = inputs["method_configs"]["FireNet+"]
     bundle = trunner.MethodBundle("FireNet+", cfg, "cpu")
     monkeypatch.chdir(tmp_path)
     args = ("SYNS", "FireNet+", bundle, cfg,
-            sequences(Sequence, inputs["seq_dirs"]), ["mse"])
+            sequences(Sequence, inputs["seq_dirs"]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbatched.eval_method_on_sequence_group(
-            args[0], dict(EVAL_CONFIG, histeq="global"), *args[1:])
+            args[0], dict(EVAL_CONFIG, histeq="global"), *args[1:],
+            ["mse", "lpips"])
     monkeypatch.setenv("EVREAL_RESUME", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbatched.eval_method_on_sequence_group(args[0], EVAL_CONFIG,
-                                               *args[1:])
+                                               *args[1:], ["lpips"])

@@ -178,3 +178,68 @@ def test_deterministic_across_launches_and_groupings(cuda_device,
         assert torch.equal(whole, vox(slice(0, 32)))
         halves = torch.cat([vox(slice(0, 16)), vox(slice(16, 32))])
         assert torch.equal(whole, halves)
+
+
+# ---------------------------------------------------------------------------
+# the color merge, CLAHE and the merged frames' post-norm on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [(180, 240), (260, 346), (261, 347)])
+def test_color_merge_on_card_matches_cpu(cuda_device, full):
+    """The OpenCV-free merge (integer arithmetic throughout, LAB->BGR
+    included) gives the same bytes on the card as on the CPU."""
+    from evreal_tpu_torch.utils import color
+
+    rng = np.random.default_rng(full[1])
+    h, w = full[0] // 2, full[1] // 2
+    ch = torch.from_numpy(rng.integers(0, 256, (4, 4, h, w), dtype=np.uint8))
+    gray = torch.from_numpy(rng.integers(0, 256, (4,) + full,
+                                         dtype=np.uint8))
+    got = color.merge_channels_into_color_image(ch.to(cuda_device),
+                                                gray.to(cuda_device))
+    assert torch.equal(got.cpu(), color.merge_channels_into_color_image(
+        ch, gray))
+    up = color.resize_linear_u8(ch.to(cuda_device), (2 * h + 1, 2 * w + 1))
+    assert torch.equal(up.cpu(), color.resize_linear_u8(
+        ch, (2 * h + 1, 2 * w + 1)))
+
+
+@pytest.mark.cuda
+def test_lab_on_card_matches_cpu_on_every_colour(cuda_device):
+    from evreal_tpu_torch.utils import color
+
+    v = torch.arange(256, dtype=torch.uint8)
+    allc = torch.stack(torch.meshgrid(v, v, v, indexing="ij"), -1)
+    allc = allc.reshape(4096, 4096, 3)
+    for fn in (color.bgr_to_lab_u8, color.lab_to_bgr_u8):
+        assert torch.equal(fn(allc.to(cuda_device)).cpu(), fn(allc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(180, 240), (260, 346), (47, 63), (64, 64),
+                                (5, 30)])
+def test_clahe_on_card_matches_cpu(cuda_device, hw):
+    from evreal_tpu_torch.harness.histeq import clahe_u8
+
+    rng = np.random.default_rng(hw[0])
+    yy, xx = np.mgrid[0:hw[0], 0:hw[1]]
+    for img in (rng.integers(0, 256, hw, dtype=np.uint8),
+                (127 + 120 * np.sin(yy / 9.0) * np.cos(xx / 7.0)).astype(
+                    np.uint8)):
+        t = torch.from_numpy(img)
+        assert torch.equal(clahe_u8(t.to(cuda_device)).cpu(), clahe_u8(t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["robust", "standard"])
+def test_color_post_norm_on_card_matches_cpu(cuda_device, norm):
+    from evreal_tpu_torch.ops.normalize import (
+        post_process_normalization_frames)
+
+    rng = np.random.default_rng(3)
+    frames = torch.from_numpy(
+        rng.integers(0, 256, (4, 260, 346, 3)).astype(np.float32) / 255)
+    got = post_process_normalization_frames(frames.to(cuda_device), norm)
+    assert torch.equal(got.cpu(), post_process_normalization_frames(
+        frames, norm))

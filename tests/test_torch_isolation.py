@@ -1,6 +1,6 @@
-"""The port imports nothing of JAX or of the JAX package. Checked in a
-fresh interpreter: this test process has imported jax already
-(tests/conftest.py)."""
+"""The port imports nothing of JAX, of the JAX package or of OpenCV (the
+card's machine has neither). Checked in a fresh interpreter: this test
+process has imported jax already (tests/conftest.py)."""
 
 import json
 import subprocess
@@ -18,7 +18,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "evreal_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "evreal_tpu", "cv2"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -34,4 +34,9 @@ def test_port_imports_no_jax_and_no_evreal_tpu():
             "evreal_tpu_torch.harness.batched", "evreal_tpu_torch.cli",
             "evreal_tpu_torch.kernels.voxelize_cuda",
             "evreal_tpu_torch.ops.voxelize",
-            "evreal_tpu_torch.__main__"} <= set(report["modules"])
+            "evreal_tpu_torch.__main__",
+            "evreal_tpu_torch.utils.color",
+            "evreal_tpu_torch.models.colornet",
+            "evreal_tpu_torch.harness.histeq",
+            "evreal_tpu_torch.harness.video",
+            "evreal_tpu_torch.native"} <= set(report["modules"])
