@@ -95,9 +95,28 @@ Phases, each printing one JSON line:
    a ``create_video`` run writes ``<dir>_<fps>Hz.mp4``; without it
    ``evaluate`` raises the error naming ffmpeg before any launch (the line
    says which case held);
-8. the ``kernels`` line: per ported kernel its launches on its path (and
-   per method and path in the methods and eval-config phases), error and
-   times beside its bound;
+8. metrics — with phase 4's E2VID weights and sequence and phase 5's 16,
+   and parameter files it writes from seed 0 (LPIPS at AlexNet's widths in
+   the JAX layout; NIQE pristine statistics and a BRISQUE SVR as the JAX
+   tests build them; MANIQA at IIGROUP/MANIQA's published widths, ViT-B/8
+   with 12 heads, embed 768, Swin [2, 2] x 4 heads, window 4):
+   ``-qm mse ssim lpips`` single f32 on 96 windows (and ``-qm mse ssim``
+   for the ms/frame without LPIPS), the first 8 windows on the CPU (rows
+   within 1e-3), 16-lane bf16 compact4 lockstep, 2-lane f32 lockstep
+   against one at a time (rows within 1e-4); with the LPIPS file absent
+   the skip line and the same mse/ssim rows; LPIPS alone on a single and
+   a 16-lane chunk, profiled; on an events-only 260 x 346 sequence (40 ms
+   windows to 0.6 s, events spread over the sensor) ``-qm niqe brisque``
+   and ``-qm mse niqe``: their rows held to the host functions on the
+   frames the run scored, no mse rows, host ms per frame;
+   ``-qm mse nosuch`` (its line, the run goes on); MANIQA
+   through ``evaluate`` on 2 windows (20 crops), one frame card vs CPU at
+   one crop (1e-3), ms per frame at 20 crops with peak memory; the
+   voxelizer held to its int64 plain version at these paths' first
+   launches;
+9. the ``kernels`` line: per ported kernel its launches on its path (and
+   per method and path in the methods, eval-config and metrics phases),
+   error and times beside its bound;
 
 then nvidia-smi's name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -464,7 +483,7 @@ def phase_main_path(torch, vc, work, card, device="cuda"):
                                                  get_method_config,
                                                  quantize_u8)
     from evreal_tpu_torch.harness.timers import TimingLog
-    from evreal_tpu_torch.metrics.functional import mse, ssim
+    from evreal_tpu_torch.metrics.registry import resolve
     from evreal_tpu_torch.models import flagship_e2vid_kwargs
     from evreal_tpu_torch.models.init import init_e2vid
     from evreal_tpu_torch.data import Sequence, pack_windows
@@ -525,7 +544,7 @@ def phase_main_path(torch, vc, work, card, device="cuda"):
         vox = runner.voxelize(runner.upload(bufs))
         _, raw = runner.reconstruct(runner.init_state(), vox)
         _, clipped = runner.post(raw)
-        sc = runner.metric_scores([("mse", mse), ("ssim", ssim)], clipped,
+        sc = runner.metric_scores(resolve(["mse", "ssim"]), clipped,
                                   runner.upload({"r": refs})["r"])
         res[dev] = {"raw": raw.cpu(), "u8": quantize_u8(clipped).cpu(),
                     "scores": {k: v.cpu().numpy() for k, v in sc.items()}}
@@ -1119,7 +1138,7 @@ def check_color_tree(out, n_windows, hw):
 
 
 def capture_evaluate(vc, methods, config, dataset, label, device,
-                     switches=None):
+                     switches=None, metrics=("mse", "ssim")):
     """``evaluate`` with its stdout captured and the voxelizer's launch
     counts set to 0 just before; fails on any contained exception.
     Returns (results, launches by precision, steady ms/frame of the first
@@ -1134,7 +1153,7 @@ def capture_evaluate(vc, methods, config, dataset, label, device,
     vc.reset_launches()
     t0 = time.perf_counter()
     with env(**(switches or {})), redirect_stdout(buf):
-        results = evaluate(methods, [config], [dataset], ["mse", "ssim"],
+        results = evaluate(methods, [config], [dataset], list(metrics),
                            device=device, timings=timings)
     wall_s = time.perf_counter() - t0
     launches = dict(vc.launches_by_precision)
@@ -1398,7 +1417,7 @@ def rescore_processed(torch, seq_dir, frames, processed, scores, mode):
     from evreal_tpu_torch.data import Sequence
     from evreal_tpu_torch.harness import histeq
     from evreal_tpu_torch.harness.runner import equalized_refs
-    from evreal_tpu_torch.metrics import functional as metric_fns
+    from evreal_tpu_torch.metrics.registry import resolve
 
     redo = max(int(np.abs(np.round(np.clip(histeq.histogram_equalization(
         f / 255.0, mode), 0, 1) * 255).astype(int) - p.astype(int)).max())
@@ -1411,9 +1430,9 @@ def rescore_processed(torch, seq_dir, frames, processed, scores, mode):
     refs = torch.from_numpy(equalized_refs(seq, [metas[i] for i in idx],
                                            mode))
     err = 0.0
-    for name, fn in metric_fns.resolve(["mse", "ssim"]):
-        got = fn(imgs, refs).numpy()
-        err = max(err, max(abs(scores[name][i] - float(g))
+    for spec in resolve(["mse", "ssim"]):
+        got = spec.score(imgs, refs).numpy()
+        err = max(err, max(abs(scores[spec.name][i] - float(g))
                            for i, g in zip(idx, got)))
     return redo, err
 
@@ -1559,6 +1578,455 @@ def phase_eval_configs(torch, vc, vox, work, card, device="cuda"):
             "video": video}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the metrics (registry, LPIPS, NIQE, BRISQUE, MANIQA, no-reference)
+# ---------------------------------------------------------------------------
+
+METRIC_CPU_WINDOWS = 8  # the LPIPS run on the CPU
+NOREF_END_S = 0.6       # the events-only sequence: t40ms windows to 0.6 s
+MANIQA_WINDOWS = 2      # MANIQA through evaluate (20 crops a frame)
+MANIQA_TIMED = 3        # frames timed at 20 crops
+MANIQA_WIDTHS = {}      # maniqa.random_params' defaults: the published ones
+LPIPS_CONVS = ((0, 3, 64, 11), (3, 64, 192, 5), (6, 192, 384, 3),
+               (8, 384, 256, 3), (10, 256, 256, 3))  # AlexNet's widths
+
+
+def write_lpips_npz(path, seed=0):
+    """Random LPIPS weights at AlexNet's widths (He-scaled convolutions,
+    non-negative lin heads), written as tools/convert_lpips.py writes
+    them: every 4-D array HWIO."""
+    rng = np.random.default_rng(seed)
+    w = {}
+    for i, (idx, cin, cout, k) in enumerate(LPIPS_CONVS):
+        w[f"features.{idx}.weight"] = rng.normal(
+            0, (2.0 / (cin * k * k)) ** 0.5, (cout, cin, k, k))
+        w[f"features.{idx}.bias"] = rng.normal(0, 0.01, cout)
+        w[f"lin.{i}.weight"] = np.abs(rng.normal(0, 0.1, (1, cout, 1, 1)))
+    np.savez(path, **{k: (v.transpose(2, 3, 1, 0) if v.ndim == 4 else v)
+                      .astype(np.float32) for k, v in w.items()})
+
+
+def write_nr_params(root, seq_dir):
+    """NIQE pristine statistics from the features of smooth synthetic
+    frames (``tests/test_niqe.py``'s recipe), and a hand-built BRISQUE SVR
+    (``tests/test_brisque.py``'s form) whose feature ranges span the
+    sequence's reference frames, smooth frames and uniform noise. Returns
+    the two paths."""
+    from evreal_tpu_torch.data import Sequence
+    from evreal_tpu_torch.metrics import brisque, niqe
+
+    yy, xx = np.mgrid[0:96, 0:192].astype(np.float64)
+    rng = np.random.default_rng(0)
+    clean = [np.clip(0.5 + 0.3 * np.sin(xx / (8 + s % 5)) * np.cos(yy / 11)
+                     + rng.normal(0, 0.01, xx.shape), 0, 1) for s in range(8)]
+    feats = np.concatenate([niqe.niqe_features(c) for c in clean])
+    niqe_path = os.path.join(root, "niqe_params.npz")
+    np.savez(niqe_path, mu=feats.mean(0),
+             cov=np.cov(feats, rowvar=False) + np.eye(36) * 1e-6)
+    seq = Sequence(seq_dir, num_bins=ECD["b"])
+    f = np.stack([brisque.brisque_features(im) for im in
+                  [seq.frame(m["frame_index"]) for m in seq.windows()[:4]]
+                  + clean[:4] + list(rng.random((4, 96, 192)))])
+    brisque_path = os.path.join(root, "brisque_svm.npz")
+    np.savez(brisque_path, sv=rng.uniform(-1, 1, (8, 36)),
+             sv_coef=rng.normal(0, 1, 8), gamma=np.float64(0.02),
+             rho=np.float64(0.1), scale_min=f.min(0) - 1e-3,
+             scale_max=f.max(0) + 1e-3)
+    return niqe_path, brisque_path
+
+
+def write_events_only(dst, hw, duration_s, rate, seed=0):
+    """A sequence without reference frames (the TPAMI20_HDR case) of
+    ``rate`` events a second spread uniformly over the sensor: its
+    reconstructions are textured everywhere, so NIQE's sharpness rule
+    keeps several of its 96-px patches (on the blob sequences it keeps
+    one, and NIQE has no covariance: NaN, dropped)."""
+    rng = np.random.default_rng(seed)
+    n = int(duration_s * rate)
+    os.makedirs(dst)
+    np.save(os.path.join(dst, "events_ts.npy"),
+            np.sort(rng.uniform(0, duration_s, n)))
+    np.save(os.path.join(dst, "events_xy.npy"), np.stack(
+        [rng.integers(0, hw[1], n), rng.integers(0, hw[0], n)],
+        1).astype(np.int16))
+    np.save(os.path.join(dst, "events_p.npy"),
+            rng.integers(0, 2, n).astype(np.uint8))
+    with open(os.path.join(dst, "metadata.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"sensor_resolution": list(hw)}, f)
+
+
+def metric_rows(out, metric, n):
+    """{window: score} of ``metric`` in ``out``: a finite score for each of
+    the ``n`` windows."""
+    rows = read_rows(os.path.join(out, metric + ".txt"))
+    check(sorted(rows) == list(range(n)) and all(
+        np.isfinite(v) for v in rows.values()),
+        f"{out}/{metric}.txt: {len(rows)} rows, want {n} finite")
+    return rows
+
+
+def rescored(out, metric, redo):
+    """The rows of ``metric`` in ``out`` against ``redo``, the host
+    function's scores of the frames the run scored: a row exactly where
+    that score is finite (the tracker drops NaN: NIQE has no covariance
+    below two selected patches), within TOL_RESCORE of it. Returns (rows,
+    max abs error)."""
+    rows = read_rows(os.path.join(out, metric + ".txt"))
+    redo = [float(v) for v in redo]
+    finite = [i for i, v in enumerate(redo) if np.isfinite(v)]
+    check(sorted(rows) == finite and finite, f"{out}/{metric}.txt: rows "
+          f"{sorted(rows)[:8]}, the host function scores {finite[:8]} of "
+          f"{len(redo)}")
+    return rows, max((abs(rows[i] - redo[i]) for i in finite), default=0.0)
+
+
+def rows_err(a, b, idx=None):
+    idx = sorted(a) if idx is None else idx
+    return max(abs(a[i] - b[i]) for i in idx)
+
+
+def profile_metric(torch, runner, spec, clipped, refs, label):
+    """One call of ``spec`` on a chunk's frames: device busy ms under
+    torch.profiler, CUDA-event ms (median of 5 after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runner.metric_scores([spec], clipped, refs)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runner.metric_scores([spec], clipped, refs)
+        torch.cuda.synchronize()
+    busy_ms, _, by_name = device_time(torch, prof)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=clipped.device)
+    ms = time_ms(torch, lambda: runner.metric_scores([spec], clipped, refs),
+                 flush, warmup=1, iters=5)
+    return {"path": label, "frames": int(np.prod(clipped.shape[:-2])),
+            "device_busy_ms": busy_ms, "ms": ms,
+            "top_kernels": top_kernels(by_name, 6)}
+
+
+def phase_metrics(torch, vc, vox, work, card, device="cuda"):
+    """``-qm mse ssim lpips`` single (card and CPU) and in lockstep, with
+    a random AlexNet-width LPIPS file and without one; NIQE and BRISQUE
+    rows against the host functions on the run's own frames; MANIQA at its
+    published widths; an events-only sequence with ``-qm mse niqe``; an
+    unknown name. The voxelizer held to its plain version at the new
+    paths' first launches."""
+    from evreal_tpu_torch.data import Sequence, pack_windows, plan_capacity
+    from evreal_tpu_torch.harness.config import read_json
+    from evreal_tpu_torch.harness.runner import (MethodBundle,
+                                                 get_method_config)
+    from evreal_tpu_torch.metrics import brisque, maniqa, niqe, registry
+    from evreal_tpu_torch.utils import f32_parity
+
+    c = ECD
+    hw = (c["h"], c["w"])
+    root = os.path.join(work, "metrics")
+    t0 = time.perf_counter()
+    os.makedirs(root)
+    write_config(root, "method", "E2VID", read_json(os.path.join(
+        work, "config", "method", "E2VID.json")))
+    syn = os.path.join(work, "data", "SYN", "seq0")  # phase 4's sequence
+    lock = os.path.join(work, "data", "LOCK")  # phase 5's sequences
+    cuts = {"SYN": N_WINDOWS, "LPCPU": METRIC_CPU_WINDOWS,
+            "MQ": MANIQA_WINDOWS}
+    for ds, n in cuts.items():
+        seq = {"sequence_path": syn}
+        if n < N_WINDOWS:
+            seq["end_time_s"] = cut_after(syn, n, c["b"])
+        write_config(root, "dataset", ds, {"root_path": os.path.dirname(syn),
+                                           "sequences": {"seq0": seq}})
+    for ds, k in (("LOCK", N_LANES), ("LOCK2", 2)):
+        write_config(root, "dataset", ds, {"root_path": lock, "sequences": {
+            f"seq{j:02d}": {} for j in range(k)}})
+    # the no-reference metrics at CED's 260 x 346 (2 x 3 NIQE patches)
+    noref = os.path.join(root, "data", "NOREF", "hdr0")
+    write_events_only(noref, COLOR_HW, NOREF_END_S + 0.04,
+                      EVENTS_PER_WINDOW / 0.04)
+    write_config(root, "dataset", "NOREF", {
+        "root_path": os.path.dirname(noref),
+        "sequences": {"hdr0": {"end_time_s": NOREF_END_S}}})
+    lpips_path = os.path.join(root, "lpips_alex.npz")
+    write_lpips_npz(lpips_path)
+    niqe_path, brisque_path = write_nr_params(root, syn)
+    maniqa_path = os.path.join(root, "maniqa.npz")
+    np.savez(maniqa_path, **maniqa.random_params(0, **MANIQA_WIDTHS))
+    setup_s = time.perf_counter() - t0
+    os.chdir(root)
+    f32 = dict(EVREAL_DTYPE=None, EVREAL_WIRE=None, EVREAL_BATCHED=None,
+               EVREAL_LPIPS_WEIGHTS=lpips_path,
+               EVREAL_NIQE_PARAMS=niqe_path,
+               EVREAL_BRISQUE_PARAMS=brisque_path,
+               EVREAL_MANIQA_PARAMS=maniqa_path, EVREAL_MANIQA_CROPS=None)
+    n_chunks = -(-N_WINDOWS // CHUNK_T)
+    runs = {}
+
+    def run(label, dataset, metrics, want, dev=device, config="std",
+            **switches):
+        """One evaluate with the launches it must make; its outputs move
+        to outputs/<config>/<dataset>_<label>."""
+        _, launches, ms, wall_s, out = capture_evaluate(
+            vc, ["E2VID"], config, dataset, f"metrics {label}", dev,
+            dict(f32, **switches), metrics)
+        if dev == device:
+            check(launches == dict({"highest": 0, "default": 0}, **want),
+                  f"metrics {label}: voxelizer launches {launches}, want "
+                  f"{want}")
+        base = os.path.join("outputs", config)
+        os.rename(os.path.join(base, dataset),
+                  os.path.join(base, f"{dataset}_{label}"))
+        runs[label] = {"launches": launches, "ms_per_frame_steady": ms,
+                       "wall_s": wall_s}
+        return os.path.join(base, f"{dataset}_{label}"), out
+
+    # LPIPS: single f32 with and without it, the CPU on the first windows
+    base, _ = run("mse_ssim_single_f32", "SYN", ["mse", "ssim"],
+                  {"highest": n_chunks})
+    plain = check_tree(os.path.join(base, "seq0", "E2VID"), N_WINDOWS, hw,
+                       decode_frames=False)[0]
+    base, _ = run("lpips_single_f32", "SYN", ["mse", "ssim", "lpips"],
+                  {"highest": n_chunks})
+    out = os.path.join(base, "seq0", "E2VID")
+    single = check_tree(out, N_WINDOWS, hw, decode_frames=False)[0]
+    single["lpips"] = metric_rows(out, "lpips", N_WINDOWS)
+    base, _ = run("lpips_cpu", "LPCPU", ["mse", "ssim", "lpips"], {},
+                  dev="cpu")
+    cpu = {m: metric_rows(os.path.join(base, "seq0", "E2VID"), m,
+                          METRIC_CPU_WINDOWS) for m in ("mse", "ssim",
+                                                        "lpips")}
+    cpu_err = {m: rows_err(cpu[m], single[m]) for m in cpu}
+    check(max(cpu_err.values()) <= TOL_SCORE, f"metrics: score rows card vs "
+          f"CPU {cpu_err} > {TOL_SCORE}")
+    same = rows_err(plain["mse"], single["mse"]) + rows_err(plain["ssim"],
+                                                            single["ssim"])
+    check(same == 0, f"metrics: lpips changed the mse/ssim rows by {same}")
+
+    # no LPIPS file: the skip line, the mse/ssim rows, the run goes on
+    base, out_text = run("no_lpips_file", "SYN", ["mse", "ssim", "lpips"],
+                         {"highest": n_chunks},
+                         EVREAL_LPIPS_WEIGHTS=os.path.join(root, "none.npz"))
+    check("lpips weights unavailable (see tools/convert_lpips.py); skipping "
+          "lpips" in out_text, "metrics: no skip line without the LPIPS file")
+    out = os.path.join(base, "seq0", "E2VID")
+    check(not os.path.exists(os.path.join(out, "lpips.txt")),
+          "metrics: lpips.txt written without the LPIPS file")
+    skipped = check_tree(out, N_WINDOWS, hw, decode_frames=False)[0]
+    no_file_err = max(rows_err(skipped[m], plain[m]) for m in skipped)
+    check(no_file_err <= TOL_LOCKSTEP, f"metrics: rows without the LPIPS "
+          f"file differ by {no_file_err}")
+
+    # LPIPS in lockstep: 16 lanes bf16 compact4; 2 lanes f32 vs single
+    base, _ = run("lpips_lockstep_bf16_compact4", "LOCK",
+                  ["mse", "ssim", "lpips"], {"default": n_chunks},
+                  EVREAL_DTYPE="bfloat16", EVREAL_WIRE="compact4")
+    for j in range(N_LANES):
+        out = os.path.join(base, f"seq{j:02d}", "E2VID")
+        check_tree(out, N_WINDOWS, hw, decode_frames=False, may_skip={0})
+        rows = read_rows(os.path.join(out, "lpips.txt"))
+        check(set(range(1, N_WINDOWS)) <= set(rows) and all(
+            np.isfinite(v) for v in rows.values()),
+            f"{out}/lpips.txt: {len(rows)} rows")
+    lanes = {}
+    for label, want, switches in (
+            ("lpips_lockstep_f32", n_chunks, {}),
+            ("lpips_single_lanes_f32", 2 * n_chunks, {"EVREAL_BATCHED": "0"})):
+        base, _ = run(label, "LOCK2", ["mse", "ssim", "lpips"],
+                      {"highest": want}, **switches)
+        lanes[label] = [metric_rows(os.path.join(base, f"seq{j:02d}",
+                                                 "E2VID"), "lpips", N_WINDOWS)
+                        for j in range(2)]
+    lock_err = max(rows_err(a, b) for a, b in zip(
+        lanes["lpips_lockstep_f32"], lanes["lpips_single_lanes_f32"]))
+    check(lock_err <= TOL_LOCKSTEP, f"metrics: lpips rows f32 lockstep vs "
+          f"single {lock_err} > {TOL_LOCKSTEP}")
+
+    # LPIPS alone on a chunk: the single path's 32 frames and a 16-lane
+    # chunk's 512, profiled
+    method_config = get_method_config("E2VID")
+    seq = Sequence(syn, num_bins=c["b"])
+    with env(**f32):
+        runner = MethodBundle("E2VID", method_config, device).runner_for(
+            hw, method_config, c["b"])
+        (lp_spec,) = registry.resolve(["lpips"])
+        bufs, metas = pack_windows(seq, list(range(CHUNK_T)))
+        _, _, clipped = runner.run(runner.init_state(), runner.upload(bufs),
+                                   CHUNK_T)
+        refs = runner.upload({"r": np.stack([seq.frame_u8(m["frame_index"])
+                                             for m in metas])})["r"]
+        lpips_profile = [profile_metric(torch, runner, lp_spec, clipped,
+                                        refs, "single_chunk")]
+        lpips_profile.append(profile_metric(
+            torch, runner, lp_spec, clipped.repeat(N_LANES, 1, 1)
+            .view(N_LANES, CHUNK_T, *hw), refs.repeat(N_LANES, 1, 1)
+            .view(N_LANES, CHUNK_T, *hw), f"lockstep_chunk_{N_LANES}_lanes"))
+
+    # NIQE and BRISQUE: rows against the host functions on the frames the
+    # run scored (a host metric that keeps them: no PNG round trip)
+    frames = []
+
+    def keep(imgs):
+        frames.append(np.array(imgs))
+        return np.zeros(len(imgs), np.float32)
+
+    def run_kept(label, dataset, metrics, want, n, **kw):
+        """``run`` with a host metric that keeps the frames the host
+        metrics saw; returns (outputs, the n frames)."""
+        frames.clear()
+        registry.register("smoke_frames", keep, no_ref=True, host=True)
+        try:
+            base, _ = run(label, dataset, metrics + ["smoke_frames"], want,
+                          **kw)
+        finally:
+            registry._REGISTRY.pop("smoke_frames")
+        kept = np.concatenate(frames)
+        check(kept.shape == (n,) + COLOR_HW, f"metrics {label}: the host "
+              f"metrics saw {kept.shape}")
+        return base, kept
+
+    n_noref = len([m for m in Sequence(noref, num_bins=c["b"], voxel_method={
+        "method": "t_seconds", "t": 0.04, "sliding_window_t": 0}).windows()
+        if m["voxel_timestamp"] <= NOREF_END_S])
+    noref_want = {"highest": -(-n_noref // CHUNK_T)}
+    base, scored = run_kept("niqe_brisque_single_f32", "NOREF",
+                            ["niqe", "brisque"], noref_want, n_noref,
+                            config="t40ms")
+    out = os.path.join(base, "hdr0", "E2VID")
+    mu, cov = niqe.load_params(niqe_path)
+    svr = brisque.load_params(brisque_path)
+    host_ms, nr_rows, nr_err = {}, {}, {}
+    for name, fn in (("niqe", lambda f: niqe.niqe(f, mu, cov)),
+                     ("brisque", lambda f: brisque.brisque(f, svr))):
+        t1 = time.perf_counter()
+        redo = [fn(f) for f in scored]
+        host_ms[name] = (time.perf_counter() - t1) * 1e3 / len(scored)
+        # scores leave the host metric as float32, as in the JAX package
+        nr_rows[name], nr_err[name] = rescored(out, name, np.float32(redo))
+    check(max(nr_err.values()) <= TOL_RESCORE, f"metrics: NIQE/BRISQUE rows "
+          f"vs the host functions on the run's frames {nr_err} > "
+          f"{TOL_RESCORE}")
+
+    # no reference frames and -qm mse niqe: NIQE rows, no mse rows
+    base, kept = run_kept("noref_mse_niqe", "NOREF", ["mse", "niqe"],
+                          noref_want, n_noref, config="t40ms")
+    out = os.path.join(base, "hdr0", "E2VID")
+    noref_rows, noref_err = rescored(out, "niqe", np.float32([
+        niqe.niqe(f, mu, cov) for f in kept]))
+    check(noref_err <= TOL_RESCORE, f"metrics: events-only NIQE rows vs the "
+          f"host function {noref_err} > {TOL_RESCORE}")
+    mse_path = os.path.join(out, "mse.txt")
+    check(not os.path.exists(mse_path) or os.path.getsize(mse_path) == 0,
+          "metrics: mse rows on a sequence without reference frames")
+    with open(os.path.join(out, "done.json"), encoding="utf-8") as f:
+        done = json.load(f)
+    check(done["metrics"] == ["niqe", "smoke_frames"]
+          and done["num_evaluated"] == n_noref,
+          f"metrics: done.json of the events-only run: {done}")
+
+    # an unknown name: its line, and the run goes on
+    base, out_text = run("unknown_name", "LPCPU", ["mse", "nosuch"],
+                         {"highest": 1})
+    check("Unknown metric nosuch" in out_text, "metrics: no 'Unknown "
+          "metric nosuch' line")
+    metric_rows(os.path.join(base, "seq0", "E2VID"), "mse",
+                METRIC_CPU_WINDOWS)
+
+    # MANIQA at its published widths: through evaluate (20 crops a frame),
+    # one frame card vs CPU at one crop, 20 crops timed with peak memory
+    base, _ = run("maniqa_single_f32", "MQ", ["maniqa"], {"highest": 1})
+    maniqa_rows = metric_rows(os.path.join(base, "seq0", "E2VID"), "maniqa",
+                              MANIQA_WINDOWS)
+    params = maniqa.load_params(maniqa_path)
+    scored = scored[:, :hw[0], :hw[1]]  # ECD's size: upscaled to 224 x 299
+    frame = torch.from_numpy(np.clip(scored[-1], 0, 1))
+    one = {}
+    with f32_parity():
+        for dev in (device, "cpu"):
+            w = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+                     else v) for k, v in params.items()}
+            with torch.no_grad():
+                one[dev] = float(maniqa.maniqa(
+                    w, frame.to(dev), n_crops=1,
+                    window_size=w["_meta_window"], scale=w["_meta_scale"]))
+        maniqa_err = abs(one[device] - one["cpu"])
+        check(maniqa_err <= TOL_SCORE, f"metrics: MANIQA card vs CPU "
+              f"{maniqa_err} > {TOL_SCORE}")
+        w = {k: (torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
+                 else v) for k, v in params.items()}
+        timed = torch.from_numpy(np.clip(scored[:MANIQA_TIMED], 0, 1)).to(
+            device)
+
+        def maniqa_frames():
+            with torch.no_grad():
+                return torch.stack([maniqa.maniqa(
+                    w, f, window_size=w["_meta_window"],
+                    scale=w["_meta_scale"]) for f in timed])
+
+        maniqa_frames()  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+        maniqa_ms = time_ms(torch, maniqa_frames, flush, warmup=0,
+                            iters=2) / MANIQA_TIMED
+        peak = torch.cuda.max_memory_allocated()
+    n_params = sum(v.size for v in params.values()
+                   if isinstance(v, np.ndarray))
+
+    # the voxelizer at the new paths' first launches, on their data: the
+    # first n windows of each sequence, empty windows to CHUNK_T
+    def first_launch(seqs, wire, n=CHUNK_T):
+        cap = plan_capacity(m["event_count"] for s in seqs
+                            for m in s.windows()[:n])
+        packed = []
+        for s in seqs:
+            t = min(n, CHUNK_T)
+            p = pack_windows(s, list(range(t)), capacity=cap, wire=wire)[0]
+            packed.append({k: np.concatenate([v, np.zeros(
+                (CHUNK_T - t,) + v.shape[1:], v.dtype)]) for k, v in p.items()})
+        return {k: torch.from_numpy(np.concatenate(
+            [p[k] for p in packed])).to(device) for k in packed[0]}
+
+    tsec = {"method": "t_seconds", "t": 0.04, "sliding_window_t": 0}
+    at_launch = {}
+    for label, seqs, wire, prec, grid, n in (
+            ("lpips_single_f32", [seq], "f32", "highest", hw, N_WINDOWS),
+            ("noref_t40ms", [Sequence(noref, num_bins=c["b"],
+                                      voxel_method=tsec)], "f32", "highest",
+             COLOR_HW, n_noref),
+            ("lpips_lockstep_bf16_compact4",
+             [Sequence(os.path.join(lock, f"seq{j:02d}"), num_bins=c["b"])
+              for j in range(N_LANES)], "compact4", "default", hw,
+             N_WINDOWS)):
+        at_launch[label] = {"precision": prec, "max_abs_err": hold_to_plain(
+            torch, vox, first_launch(seqs, wire, n), c["b"], grid, prec,
+            f"metrics {label} launch")[0]}
+    result = {"phase": "metrics", "card": card, "setup_s": setup_s,
+              "sensor": list(hw), "runs": runs,
+              "ms_per_frame_steady": {k: v["ms_per_frame_steady"]
+                                      for k, v in runs.items()},
+              "lpips_score_err_vs_cpu": cpu_err,
+              "lpips_lockstep_vs_single_f32": lock_err,
+              "no_lpips_file_rows_err": no_file_err,
+              "lpips_chunk": lpips_profile,
+              "mean_lpips_single": float(np.mean(list(
+                  single["lpips"].values()))),
+              "nr_rows_err_vs_host": nr_err,
+              "nr_host_ms_per_frame": host_ms,
+              "mean_brisque": float(np.mean(list(
+                  nr_rows["brisque"].values()))),
+              "nr_rows_scored": {m: len(r) for m, r in nr_rows.items()},
+              "noref_windows": n_noref, "noref_niqe_rows": len(noref_rows),
+              "noref_niqe_err_vs_host": noref_err,
+              "maniqa": {"params": n_params, "rows": maniqa_rows,
+                         "card_vs_cpu_1_crop": maniqa_err,
+                         "ms_per_frame_20_crops": maniqa_ms,
+                         "peak_mem_bytes": peak},
+              "kernel_at_launch": at_launch, "bit_equal_int64_plain": True}
+    emit(result)
+    return result
+
+
+
+
 def main():
     import torch
 
@@ -1589,6 +2057,7 @@ def main():
             lock = phase_lockstep(torch, vc, vox, work, smi)
             methods = phase_methods(torch, vc, vox, work, smi)
             configs = phase_eval_configs(torch, vc, vox, work, smi)
+            metrics = phase_metrics(torch, vc, vox, work, smi)
         finally:
             os.chdir(cwd)
     by_method = methods["launches"]
@@ -1606,10 +2075,14 @@ def main():
             run["launches"]
     by_method["E2VID"]["resume_skip"] = configs["resume"][
         "skipped_launches"]
+    for label, run in metrics["runs"].items():
+        if not label.endswith("cpu"):
+            by_method["E2VID"][f"metrics_{label}"] = run["launches"]
     color_launch = color["kernel_at_color_launch"]
 
     def launch_errs(prec):
-        return [v["max_abs_err"] for v in at_launch.values()
+        return [v["max_abs_err"] for v in list(at_launch.values())
+                + list(metrics["kernel_at_launch"].values())
                 if v["precision"] == prec]
 
     def launch_times(prec):

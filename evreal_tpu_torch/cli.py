@@ -1,18 +1,20 @@
 """Command line of the port, with the flags of the repository's ``eval.py``:
 
-    python -m evreal_tpu_torch -m E2VID -c std -d ECD -qm mse ssim [--device cpu]
+    python -m evreal_tpu_torch -m E2VID -c std -d ECD -qm mse ssim lpips [--device cpu]
 
 It writes the same output tree (``outputs/<config>/<dataset>/<sequence>/
 <method>/``) and runs on the CUDA card unless ``--device`` names another
 device. A method's ``model_path`` may name a reference ``.pth`` or a
-converted ``.npz`` with its sidecar.
+converted ``.npz`` with its sidecar. A metric whose weights are absent
+(``lpips`` without ``weights/lpips_alex.npz`` or ``EVREAL_LPIPS_WEIGHTS``)
+is skipped with a message, as is an unknown name.
 """
 
 import argparse
 
 
 def main(argv=None):
-    from evreal_tpu_torch.harness.runner import evaluate
+    from evreal_tpu_torch.harness.runner import DEFAULT_METRICS, evaluate
     from evreal_tpu_torch.harness.timers import TimingLog
 
     parser = argparse.ArgumentParser(
@@ -24,8 +26,10 @@ def main(argv=None):
     parser.add_argument("-d", "--dataset", nargs="+", type=str,
                         help="datasets")
     parser.add_argument("-qm", "--metrics", nargs="+", type=str,
+                        default=DEFAULT_METRICS,
                         help="quantitative evaluation metrics that will be "
-                             "used calculate scores")
+                             "used calculate scores (default: "
+                             f"{' '.join(DEFAULT_METRICS)})")
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs the "
                              "plain CPU path)")

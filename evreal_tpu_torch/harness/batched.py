@@ -13,7 +13,9 @@ Per chunk of ``chunk_t`` windows:
     (N, T, E) event buffers -> device -> ONE voxelize_windows launch over
     the (N * T, E) view -> input norm (f32) -> serving dtype -> pad -> per
     window t: one model step of batch N -> f32 -> crop -> post-norm per
-    image -> clip -> u8 and (N, T) MSE/SSIM (f32, TF32 off)
+    image -> clip -> u8 and the (N, T) scores (f32, TF32 off): the
+    full-reference metrics on the lanes with reference frames, the
+    no-reference ones on every lane
 
 Lanes whose sequence has ended, and the windows past a lane's end in a
 ragged chunk, voxelize as empty windows (``count`` is cleared first) and
@@ -33,6 +35,7 @@ from evreal_tpu_torch.data.packing import alloc_buffers, outlier_buffers
 from evreal_tpu_torch.harness.histeq import histogram_equalization
 from evreal_tpu_torch.harness.runner import (
     MethodRunner,
+    MetricContainment,
     check_resume,
     equalized_refs,
     event_dtypes,
@@ -40,14 +43,15 @@ from evreal_tpu_torch.harness.runner import (
     from_host,
     gate_windows,
     make_tracker,
+    no_ref_specs,
     quantize_u8,
     record_window,
     run_chunks,
-    score_on_device,
     to_host,
     usable_metrics,
 )
 from evreal_tpu_torch.harness.timers import DeviceTimer, TimingLog
+from evreal_tpu_torch.metrics import registry
 
 
 class BatchedRunner(MethodRunner):
@@ -87,7 +91,8 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
     """Evaluate one method on N same-resolution sequences in lockstep.
     Returns ``[(num_evaluated, mean_scores)]`` aligned with
     ``sequences``."""
-    done = [check_resume(eval_config, dataset_name, s, method_name, metrics)
+    specs = registry.resolve(metrics)
+    done = [check_resume(eval_config, dataset_name, s, method_name, specs)
             for s in sequences]
     if any(d is not None for d in done):
         keep = [s for s, d in zip(sequences, done) if d is None]
@@ -102,9 +107,11 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
     runner = bundle.batched_runner_for(resolution, method_config,
                                        seqs[0].num_bins, n)
     device = runner.device
-    specs = usable_metrics(metrics, resolution, device)
     trackers = [make_tracker(eval_config, dataset_name, s, method_name,
-                             metrics) for s in sequences]
+                             specs) for s in sequences]
+    ref_lanes = [j for j, seq in enumerate(seqs) if seq.has_images]
+    use = usable_metrics(runner, specs if ref_lanes else no_ref_specs(specs))
+    contain = MetricContainment("group")
     eval_infer_all = eval_config.get("eval_infer_all", False)
     metas_all = [seq.windows() for seq in seqs]
     procs = [gate_windows(metas, s["start_time_s"], s["end_time_s"],
@@ -116,7 +123,6 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
                              for j in range(n) for i in procs[j])
     dtypes = event_dtypes(seqs)
     pool = alloc_buffers((n, chunk_t), capacity, dtypes)
-    use = specs if any(seq.has_images for seq in seqs) else []
     ref_dtype = _ref_dtype(seqs, procs, metas_all)
     save_images = any(t.save_images for t in trackers)
     # hist-eq: the clipped frames come to the host to be equalized
@@ -125,17 +131,35 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
     state = runner.init_state()
 
     def load_refs(chunk_idxs, valid_t):
-        """(N, valid_t, H, W) reference frames; ref-less lanes and rows
-        past a lane's end stay zero (their scores are never recorded)."""
-        refs = np.zeros((n, valid_t) + resolution, ref_dtype)
-        for j, (seq, idxs) in enumerate(zip(seqs, chunk_idxs)):
-            if not seq.has_images:
-                continue
-            for r, i in enumerate(idxs):
+        """(R, valid_t, H, W) reference frames of the R lanes that have
+        them; rows past a lane's end stay zero (never recorded)."""
+        refs = np.zeros((len(ref_lanes), valid_t) + resolution, ref_dtype)
+        for r_lane, j in enumerate(ref_lanes):
+            for r, i in enumerate(chunk_idxs[j]):
                 fi = metas_all[j][i]["frame_index"]
-                refs[j, r] = (seq.frame_u8(fi) if ref_dtype == np.uint8
-                              else seq.frame(fi))
+                refs[r_lane, r] = (seqs[j].frame_u8(fi)
+                                   if ref_dtype == np.uint8
+                                   else seqs[j].frame(fi))
         return refs
+
+    def score(imgs, refs):
+        """{name: (N, T) scores} of the lanes' frames ``imgs``: the
+        no-reference metrics on every lane, the full-reference ones on the
+        ``ref_lanes`` against ``refs`` (R, T, H, W), NaN on the others
+        (never recorded there)."""
+        live = contain.live(use)
+        out = runner.metric_scores(no_ref_specs(live), imgs, None, contain)
+        fr = [s for s in live if not s.no_ref]
+        if fr and len(ref_lanes) == n:
+            out.update(runner.metric_scores(fr, imgs, refs, contain))
+        elif fr:
+            lanes = torch.tensor(ref_lanes, device=imgs.device)
+            for name, v in runner.metric_scores(fr, imgs[lanes], refs,
+                                                contain).items():
+                out[name] = torch.full(imgs.shape[:2], float("nan"),
+                                       device=imgs.device).index_copy_(
+                                           0, lanes, v)
+        return out
 
     def dispatch(k):
         nonlocal state
@@ -166,26 +190,33 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
         if equalize:
             out["clipped"] = clipped
         elif use:
-            refs = runner.upload({"r": load_refs(chunk_idxs, valid_t)})["r"]
-            out.update(runner.metric_scores(use, clipped, refs))
+            refs = (runner.upload({"r": load_refs(chunk_idxs, valid_t)})["r"]
+                    if ref_lanes else None)
+            out.update(score(clipped, refs))
         return ((chunk_idxs,) + to_host(out),
                 sum(len(idxs) for idxs in chunk_idxs))
 
     def equalize_chunk(chunk_idxs, clipped, host):
         """Equalized frames (N, T, H, W) of the lanes' windows; with
-        metrics, the equalized pairs' scores go into ``host``. Rows past a
-        lane's end and ref-less lanes stay zero (never recorded)."""
+        metrics, the scores of the equalized frames (against the equalized
+        references on the lanes that have them) go into ``host``. Rows past
+        a lane's end stay zero (never recorded)."""
         processed = np.zeros_like(clipped)
-        refs = np.zeros_like(clipped)
         for j, idxs in enumerate(chunk_idxs):
             for r in range(len(idxs)):
                 processed[j, r] = histogram_equalization(clipped[j, r],
                                                          hist_eq)
-            if use and seqs[j].has_images and idxs:
-                refs[j, :len(idxs)] = equalized_refs(
-                    seqs[j], [metas_all[j][i] for i in idxs], hist_eq)
         if use:
-            host.update(score_on_device(runner, use, processed, refs))
+            refs = np.zeros((len(ref_lanes),) + clipped.shape[1:],
+                            clipped.dtype)
+            for r_lane, j in enumerate(ref_lanes):
+                idxs = chunk_idxs[j]
+                if idxs:
+                    refs[r_lane, :len(idxs)] = equalized_refs(
+                        seqs[j], [metas_all[j][i] for i in idxs], hist_eq)
+            dev = runner.upload({"i": processed, "r": refs})
+            host.update({k: v.cpu().numpy()
+                         for k, v in score(dev["i"], dev["r"]).items()})
         return processed
 
     def drain(entry):
@@ -213,7 +244,7 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
     for tracker in trackers:
         # finish every tracker even if one sequence's writer failed
         try:
-            finish_tracker(tracker, eval_config)
+            finish_tracker(tracker, eval_config, contain.dead)
         except Exception as e:  # noqa: BLE001 — re-raised after the loop
             first_err = first_err or e
         results.append((tracker.get_num_quan_evaluations(),

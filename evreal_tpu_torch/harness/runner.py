@@ -8,7 +8,11 @@ Per chunk of ``chunk_t`` windows:
     packed (T, E) event buffers -> device -> ONE voxelize_windows launch
     -> input norm (f32) -> cast to the serving dtype -> pad -> per window:
     model step -> f32 -> crop -> post-norm -> clip -> u8 quantization and
-    batched MSE/SSIM on the device (always f32, TF32 off)
+    the chunk's metrics (always f32, TF32 off): full-reference ones against
+    the reference frames, no-reference ones alone (a sequence without
+    reference frames has only those), device metrics as one batch, MANIQA
+    a frame at a time, host metrics (NIQE, BRISQUE, pyiqa) on one host
+    copy of the frames
 
 then the quantized frames and scores come back to the host, where the
 tracker writes the output tree. Chunk k's results are copied back
@@ -21,6 +25,14 @@ post-norm of the merged frames on the device; frames are saved and not
 scored. Hist-eq configs (``harness/histeq.py``) bring the clipped frames
 to the host, equalize them and the f32 references there, and score the
 equalized pair on the device with the same metric functions.
+
+Metrics come from ``metrics/registry.py``: names are resolved per sequence
+(a gated metric without its file, or an unknown name, is skipped with the
+JAX package's line), each is validated at the frame shape (dropped with
+its message when it cannot score it), and one that raises while scoring
+is dropped for the rest of the sequence or group (``MetricContainment``)
+and left out of ``done.json``.
+
 ``EVREAL_RESUME=1`` skips sequences whose ``done.json`` records a finished
 run under the same settings; ``create_video`` encodes each sequence's
 frames with ffmpeg at the end (``harness/video.py``).
@@ -72,7 +84,7 @@ from evreal_tpu_torch.harness.tables import (
 )
 from evreal_tpu_torch.harness.timers import DeviceTimer, TimingLog
 from evreal_tpu_torch.harness.video import require_ffmpeg
-from evreal_tpu_torch.metrics import functional as metric_fns
+from evreal_tpu_torch.metrics import registry
 from evreal_tpu_torch.metrics.tracker import (
     EvalMetricsTracker,
     MetricTracker,
@@ -100,7 +112,7 @@ from evreal_tpu_torch.utils import (
 DEFAULT_CHUNK_T = int(os.environ.get("EVREAL_CHUNK_T", "32"))
 DEFAULT_BATCH_N = int(os.environ.get("EVREAL_BATCH_N", "0"))
 PIPELINE_DEPTH = 2  # chunks in flight before the host drains the oldest
-DEFAULT_METRICS = ["mse", "ssim"]
+DEFAULT_METRICS = ["mse", "ssim", "lpips"]
 
 
 # ---------------------------------------------------------------------------
@@ -244,15 +256,76 @@ class MethodRunner:
         return (state,) + self.post(imgs)
 
     @torch.no_grad()
-    def metric_scores(self, specs, clipped, refs):
-        """{name: scores shaped like ``clipped``'s leading dims} of
-        ``clipped`` against ``refs`` (..., H, W), in f32 (TF32 off)."""
-        if refs.dtype == torch.uint8:
-            refs = self.u8_lut[refs.to(torch.int64)]
+    def metric_scores(self, specs, clipped, refs=None, on_error=None):
+        """{name: scores on the device, shaped like ``clipped``'s leading
+        dims} of the frames ``clipped`` (..., H, W): full-reference specs
+        against ``refs`` (the same shape, f32 or uint8), no-reference ones
+        alone. In f32 with TF32 off whatever the serving dtype (the JAX
+        package pins HIGHEST around its metrics). Host specs share one host
+        copy of the frames. A spec that raises is left out after
+        ``on_error(spec, exc)`` when that is given; else the error
+        propagates."""
         lead, hw = clipped.shape[:-2], tuple(clipped.shape[-2:])
-        imgs, refs = clipped.reshape((-1,) + hw), refs.reshape((-1,) + hw)
+        frames = {"imgs": clipped.reshape((-1,) + hw)}
+        if refs is not None:
+            if refs.dtype == torch.uint8:
+                refs = self.u8_lut[refs.to(torch.int64)]
+            frames["refs"] = refs.reshape((-1,) + hw)
+        host = {}
+        out = {}
         with f32_parity():
-            return {name: fn(imgs, refs).view(lead) for name, fn in specs}
+            for spec in specs:
+                keys = ("imgs",) if spec.no_ref else ("imgs", "refs")
+                args = [frames[k] for k in keys]
+                if spec.host:
+                    for k in keys:
+                        if k not in host:
+                            host[k] = frames[k].cpu().numpy()
+                    args = [host[k] for k in keys]
+                try:
+                    got = score_batch(spec, args)
+                except Exception as exc:  # noqa: BLE001 — containment
+                    if on_error is None:
+                        raise
+                    on_error(spec, exc)
+                    continue
+                if spec.host:
+                    got = torch.from_numpy(np.asarray(got, np.float32)).to(
+                        self.device)
+                out[spec.name] = got.reshape(lead)
+        return out
+
+
+def score_batch(spec, frames):
+    """``spec`` on (N, H, W) frames [and references]: one call, or one per
+    frame for a ``serial`` spec (an empty batch still makes one call, so
+    the validation probe reaches the spec's own checks)."""
+    n = len(frames[0])
+    if not spec.serial or n == 0:
+        return spec.score(*frames)
+    parts = [spec.score(*(f[i:i + 1] for f in frames)) for i in range(n)]
+    return np.concatenate(parts) if spec.host else torch.cat(parts)
+
+
+class MetricContainment:
+    """Runtime containment over one sequence or lockstep group (the JAX
+    package's ``make_metric_containment``): a metric that raises while
+    scoring is dropped, with a message, for the rest of the ``scope``; the
+    others go on, and ``dead`` goes to ``finalize(dropped=...)``."""
+
+    def __init__(self, scope):
+        self.scope = scope
+        self.dead = set()
+
+    def live(self, specs):
+        return [s for s in specs if s.name not in self.dead]
+
+    def __call__(self, spec, exc):
+        self.dead.add(spec.name)
+        lines = str(exc).strip().splitlines()
+        print(f"Metric {spec.name} failed at runtime; dropping it for the "
+              f"rest of this {self.scope} "
+              f"({lines[-1][:200] if lines else exc})")
 
 
 # ---------------------------------------------------------------------------
@@ -414,18 +487,21 @@ def gate_windows(metas, start, end, eval_infer_all):
     return proc
 
 
-def check_resume(eval_config, dataset_name, sequence, method_name,
-                 metrics):
+def no_ref_specs(specs):
+    return [s for s in specs if s.no_ref]
+
+
+def check_resume(eval_config, dataset_name, sequence, method_name, specs):
     """``EVREAL_RESUME``: the recorded (count, mean scores) of a finished
     run of this sequence under the same settings, with the skip line
-    printed, else None (and always None without the switch). Ref-less
-    sequences record no metric (every ported metric needs a reference)."""
+    printed, else None (and always None without the switch). A sequence
+    without reference frames records its no-reference metrics only."""
     if not resume_enabled():
         return None
     output_dir = sequence_output_dir(eval_config, dataset_name,
                                      sequence["name"], method_name)
-    expected = ([name for name, _ in metric_fns.resolve(metrics)]
-                if sequence["dataset"].has_images else [])
+    expected = [s.name for s in (specs if sequence["dataset"].has_images
+                                 else no_ref_specs(specs))]
     done = load_completed(output_dir, expected, sequence_settings(
         resume_settings(eval_config), sequence))
     if done is not None:
@@ -443,30 +519,33 @@ def check_color_histeq(eval_config):
                          f"only")
 
 
-def usable_metrics(metrics, hw, device):
-    """Resolve ``metrics`` and drop, with a message, those that cannot
-    score this image shape (SSIM below its 11-px window): the reference's
-    per-metric containment."""
-    probe = torch.zeros((1,) + tuple(hw), device=device)
+def usable_metrics(runner, specs):
+    """The ``specs`` that can score the runner's frame shape: each scores
+    an empty batch of frames of that shape on the runner's device (its
+    shape checks, its weights' loading, ``EVREAL_MANIQA_CROPS``), and one
+    that raises is dropped with the JAX package's message (the reference's
+    per-metric containment)."""
+    hw = (runner.h, runner.w)
+    probe = torch.zeros((0,) + hw, device=runner.device)
     out = []
-    for name, fn in metric_fns.resolve(metrics):
+    for spec in specs:
         try:
-            fn(probe, probe)
-        except ValueError as exc:
-            print(color_error(f"metric {name} failed at {tuple(hw)}: {exc}; "
+            runner.metric_scores([spec], probe, probe)
+        except Exception as exc:  # noqa: BLE001 — containment
+            print(color_error(f"metric {spec.name} failed at {hw}: {exc}; "
                               f"skipping"))
             continue
-        out.append((name, fn))
+        out.append(spec)
     return out
 
 
-def make_tracker(eval_config, dataset_name, sequence, method_name, metrics):
+def make_tracker(eval_config, dataset_name, sequence, method_name, specs):
     """The sequence's ``EvalMetricsTracker`` (single and lockstep paths)."""
     seq = sequence["dataset"]
     return EvalMetricsTracker(
         sequence_output_dir(eval_config, dataset_name, sequence["name"],
                             method_name),
-        metrics,
+        [s.name for s in specs],
         save_images=eval_config.get("save_images", True),
         quan_eval_start_time=sequence["start_time_s"],
         quan_eval_end_time=sequence["end_time_s"],
@@ -475,12 +554,14 @@ def make_tracker(eval_config, dataset_name, sequence, method_name, metrics):
         run_settings=sequence_settings(resume_settings(eval_config),
                                        sequence),
         hist_eq=eval_config.get("histeq", "none"),
-        color=eval_config.get("color", False))
+        color=eval_config.get("color", False),
+        no_ref_metric_names={s.name for s in specs if s.no_ref})
 
 
-def finish_tracker(tracker, eval_config):
-    """Close a sequence's outputs, then make its videos when asked."""
-    tracker.finalize()
+def finish_tracker(tracker, eval_config, dropped):
+    """Close a sequence's outputs (``dropped``: the metrics dropped at
+    runtime), then make its videos when asked."""
+    tracker.finalize(dropped)
     if eval_config.get("create_video", False):
         tracker.create_video()
         if eval_config.get("histeq", "none") != "none":
@@ -511,11 +592,13 @@ def equalized_refs(seq, metas, hist_eq):
         np.clip(seq.frame(m["frame_index"]), 0, 1), hist_eq) for m in metas])
 
 
-def score_on_device(runner, specs, imgs, refs):
-    """{name: numpy scores} of host images ``imgs`` against ``refs`` (...,
-    H, W), scored on the runner's device with its metric functions."""
-    dev = runner.upload({"i": imgs, "r": refs})
-    scores = runner.metric_scores(specs, dev["i"], dev["r"])
+def score_on_device(runner, specs, imgs, refs, on_error):
+    """{name: numpy scores} of host images ``imgs`` (..., H, W), against
+    ``refs`` unless None, scored on the runner's device with its metric
+    functions."""
+    dev = runner.upload({"i": imgs} if refs is None
+                        else {"i": imgs, "r": refs})
+    scores = runner.metric_scores(specs, dev["i"], dev.get("r"), on_error)
     return {k: v.cpu().numpy() for k, v in scores.items()}
 
 
@@ -572,8 +655,9 @@ def run_chunks(n_chunks, dispatch, drain, timer):
 
 def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
                             method_config, sequence, metrics, timings=None):
+    specs = registry.resolve(metrics)
     done = check_resume(eval_config, dataset_name, sequence, method_name,
-                        metrics)
+                        specs)
     if done is not None:
         return done
     check_color_histeq(eval_config)
@@ -587,10 +671,11 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
         runner = bundle.runner_for(seq.sensor_resolution, method_config,
                                    seq.num_bins)
     device = runner.device
-    specs = ([] if color
-             else usable_metrics(metrics, seq.sensor_resolution, device))
     tracker = make_tracker(eval_config, dataset_name, sequence, method_name,
-                           metrics)
+                           specs)
+    use = [] if color else usable_metrics(
+        runner, specs if seq.has_images else no_ref_specs(specs))
+    contain = MetricContainment("sequence")
 
     metas_all = seq.windows()
     proc = gate_windows(metas_all, sequence["start_time_s"],
@@ -600,7 +685,6 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
     capacity = plan_capacity(metas_all[i]["event_count"] for i in proc)
     dtypes = event_dtypes([seq])
     pool = alloc_buffers((chunk_t,), capacity, dtypes)
-    use = specs if seq.has_images else []
     # hist-eq: the clipped frames come to the host to be equalized (and
     # scored against equalized references, or saved under _processed)
     equalize = hist_eq != "none" and (
@@ -629,8 +713,10 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
         if equalize:
             out["clipped"] = clipped
         elif use:
-            refs = runner.upload({"refs": reference_frames(seq, metas)})
-            out.update(runner.metric_scores(use, clipped, refs["refs"]))
+            refs = (runner.upload({"r": reference_frames(seq, metas)})["r"]
+                    if seq.has_images else None)
+            out.update(runner.metric_scores(contain.live(use), clipped, refs,
+                                            contain))
         return (chunk, metas) + to_host(out), valid_t
 
     def drain(entry):
@@ -643,8 +729,9 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
             processed = [histogram_equalization(c, hist_eq) for c in clipped]
             if use:
                 host.update(score_on_device(
-                    runner, use, np.stack(processed),
-                    equalized_refs(seq, metas, hist_eq)))
+                    runner, contain.live(use), np.stack(processed),
+                    equalized_refs(seq, metas, hist_eq) if seq.has_images
+                    else None, contain))
         for j, (i, meta) in enumerate(zip(chunk, metas)):
             record_window(tracker, seq, i, meta,
                           images[j] if images is not None else None,
@@ -655,7 +742,7 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
     n_chunks = -(-len(proc) // chunk_t)
     with DeviceTimer(timings, method_name, len(proc), device) as timer:
         run_chunks(n_chunks, dispatch, drain, timer)
-    finish_tracker(tracker, eval_config)
+    finish_tracker(tracker, eval_config, contain.dead)
     return tracker.get_num_quan_evaluations(), tracker.get_mean_scores()
 
 
@@ -763,7 +850,6 @@ def evaluate(method_names=None, eval_config_names=None, dataset_names=None,
     eval_config_names = eval_config_names or ["std"]
     dataset_names = dataset_names or ["ECD", "MVSEC", "HQF"]
     metrics = metrics or DEFAULT_METRICS
-    metric_fns.resolve(metrics)  # an unknown or unported name fails here
     timings = timings if timings is not None else TimingLog()
     eval_configs = get_eval_configs(eval_config_names)
     for eval_config in eval_configs:

@@ -1,2 +1,1 @@
 from evreal_tpu_torch.metrics.functional import mse, ssim
-from evreal_tpu_torch.metrics.tracker import EvalMetricsTracker, MetricTracker

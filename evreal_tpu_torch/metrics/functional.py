@@ -72,26 +72,3 @@ def ssim(img, ref, data_range=1.0, sigma=1.5, truncate=3.5, k1=0.01, k2=0.03):
         s = s[:, radius:-radius, radius:-radius]
     return s.mean(dim=(-2, -1))
 
-
-METRICS = {"mse": mse, "ssim": ssim}
-# the JAX package's other metrics, and the ROADMAP queue item that ports them
-_NOT_PORTED = {"lpips": "Queue 1 item 5 (needs weights/lpips_alex.npz)",
-               "niqe": "Queue 1 item 10", "brisque": "Queue 1 item 10",
-               "maniqa": "Queue 1 item 10"}
-
-
-def resolve(names):
-    """``-qm`` names -> [(name, fn)] of full-reference batched metrics.
-    Raises for a name the port does not have."""
-    out = []
-    for name in names:
-        if name in METRICS:
-            out.append((name, METRICS[name]))
-        elif name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"metric {name!r} is not ported yet: ROADMAP.md, "
-                f"{_NOT_PORTED[name]}")
-        else:
-            raise ValueError(f"unknown metric {name!r} (ported: "
-                             f"{sorted(METRICS)})")
-    return out

@@ -4,9 +4,11 @@ reference utils/eval_metrics.py:162-350 and eval.py:249-276).
 ``EvalMetricsTracker`` writes the reference's output tree — timestamps,
 per-metric score rows, PNG frames, hist-eq'd copies under
 ``<dir>_processed`` — gates quantitative evaluation on the eval time window
-and the image/reference timestamp tolerance, drops non-finite scores, and
-reports the ``-1`` no-result sentinel for a metric with no scores (kept out
-of dataset means by the caller). In color mode it saves frames and records
+and the image/reference timestamp tolerance (not when every metric is a
+no-reference one; a sequence without reference frames keeps only those),
+drops non-finite scores, and reports the ``-1`` no-result sentinel for a
+metric with no scores or dropped at runtime (kept out of dataset means by
+the caller). In color mode it saves frames and records
 no scores (the metric files stay empty). It writes the JAX package's
 ``done.json`` completion record, which ``EVREAL_RESUME`` reads back
 (``load_completed``), and makes the folder's videos.
@@ -96,7 +98,7 @@ class EvalMetricsTracker:
                  quan_eval_start_time=0, quan_eval_end_time=float("inf"),
                  quan_eval_ts_tol_ms=float("inf"),
                  has_reference_frames=False, run_settings=None,
-                 hist_eq="none", color=False):
+                 hist_eq="none", color=False, no_ref_metric_names=()):
         self.output_dir = output_dir
         self.save_images = save_images
         self.save_processed_images = save_images and hist_eq != "none"
@@ -105,8 +107,13 @@ class EvalMetricsTracker:
         self.start_time = quan_eval_start_time
         self.end_time = quan_eval_end_time
         self.ts_tol_ms = quan_eval_ts_tol_ms
-        # every ported metric needs a reference frame
-        self.metric_names = list(metric_names) if has_reference_frames else []
+        self.metric_names = list(metric_names)
+        if not has_reference_frames:  # only no-reference metrics can score
+            self.metric_names = [m for m in self.metric_names
+                                 if m in no_ref_metric_names]
+        # no-reference metrics alone: no reference frame, no timestamp gate
+        self.only_no_ref = all(m in no_ref_metric_names
+                               for m in self.metric_names)
         self.run_settings = run_settings
         self.scores = {m: [] for m in self.metric_names}
         self.quan_eval_indices = []
@@ -148,7 +155,8 @@ class EvalMetricsTracker:
             save_inferred_image(self.processed_output_dir, processed_img,
                                 idx)
         inside_cut = self.start_time <= img_ts <= self.end_time
-        tol_ok = abs(ref_ts - img_ts) * 1000 <= self.ts_tol_ms
+        tol_ok = (self.only_no_ref
+                  or abs(ref_ts - img_ts) * 1000 <= self.ts_tol_ms)
         if inside_cut and tol_ok and not self.color and scores is not None:
             self.quan_eval_indices.append(idx)
             for name in self.metric_names:
@@ -166,13 +174,18 @@ class EvalMetricsTracker:
             self._custom.add(metric_name)
         self._append(name, "{} {:.5f}\n".format(idx, metric_value))
 
-    def finalize(self):
-        """Close the text files and write the ``done.json`` record."""
+    def finalize(self, dropped=()):
+        """Close the text files and write the ``done.json`` record.
+        ``dropped``: metrics the runner dropped at runtime. They stay out
+        of the record (an ``EVREAL_RESUME`` rerun scores them again) and
+        their means report -1, as does a metric with no score despite
+        evaluated frames (dropped by validation)."""
         for f in self._files.values():
             f.close()
         self._files = {}
-        complete = [m for m in self.metric_names
-                    if self.scores[m] or not self.quan_eval_indices]
+        self._dropped = set(dropped)
+        complete = [m for m in self.metric_names if m not in self._dropped
+                    and (self.scores[m] or not self.quan_eval_indices)]
         mean_scores = {k: v for k, v in self.get_mean_scores().items()
                        if k in complete}
         with open(self._path("done.json"), "w", encoding="utf-8") as f:
@@ -184,7 +197,8 @@ class EvalMetricsTracker:
         return len(self.quan_eval_indices)
 
     def get_mean_scores(self):
-        return {name: (sum(v) / len(v) if v else -1)
+        dropped = getattr(self, "_dropped", ())
+        return {name: (sum(v) / len(v) if v and name not in dropped else -1)
                 for name, v in self.scores.items()}
 
     def create_video(self):

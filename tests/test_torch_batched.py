@@ -273,20 +273,73 @@ def test_chunk_t_and_batch_n_parse_at_import(env, want):
         assert json.loads(proc.stdout.strip().splitlines()[-1]) == want
 
 
-def test_unported_settings_raise(inputs, tmp_path, monkeypatch):
-    """What the port still lacks raises in a group: a metric waiting for
-    its weights (ROADMAP). Hist-eq and EVREAL_RESUME, unported before,
-    now run (tests/test_torch_histeq.py, tests/test_torch_resume.py)."""
+def test_unported_settings_raise(inputs, tmp_path, monkeypatch, capsys):
+    """A metric waiting for its weights file no longer raises in a group:
+    as in the JAX package it is skipped with its line and the group runs
+    (hist-eq too), and EVREAL_RESUME then skips the finished lanes."""
     cfg = inputs["method_configs"]["FireNet+"]
     bundle = trunner.MethodBundle("FireNet+", cfg, "cpu")
     monkeypatch.chdir(tmp_path)
-    args = ("SYNS", "FireNet+", bundle, cfg,
-            sequences(Sequence, inputs["seq_dirs"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbatched.eval_method_on_sequence_group(
-            args[0], dict(EVAL_CONFIG, histeq="global"), *args[1:],
-            ["mse", "lpips"])
+    monkeypatch.setenv("EVREAL_LPIPS_WEIGHTS", str(tmp_path / "none.npz"))
+    heq = dict(EVAL_CONFIG, histeq="global")
+    args = ("SYNS", heq, "FireNet+", bundle, cfg)
+    res = tbatched.eval_method_on_sequence_group(
+        *args, sequences(Sequence, inputs["seq_dirs"]), ["mse", "lpips"])
+    out = capsys.readouterr().out
+    assert "lpips weights unavailable (see tools/convert_lpips.py); " \
+        "skipping lpips" in out
+    assert [set(s) for _, s in res] == [{"mse"}, {"mse"}]
+    assert all(n > 0 for n, _ in res)
+    for i in range(2):
+        assert rows(tmp_path, "FireNet+", i).count("\n") == res[i][0]
     monkeypatch.setenv("EVREAL_RESUME", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbatched.eval_method_on_sequence_group(args[0], EVAL_CONFIG,
-                                               *args[1:], ["lpips"])
+    again = tbatched.eval_method_on_sequence_group(
+        *args, sequences(Sequence, inputs["seq_dirs"]), ["mse", "lpips"])
+    assert capsys.readouterr().out.count("Skipping finished") == 2
+    assert again == res
+
+
+def test_lockstep_lpips_matches_jax_group(inputs, tmp_path, monkeypatch,
+                                          chunk_t):
+    """``-qm mse ssim lpips`` in lockstep with one random LPIPS ``.npz``:
+    the port's group against the JAX package's, lpips rows within 2e-5."""
+    from evreal_tpu.data import Sequence as JSequence
+    from evreal_tpu.harness import batched as jbatched
+    from evreal_tpu.harness import runner as jrunner
+    from evreal_tpu.harness import staging
+    from evreal_tpu.metrics import registry as jreg
+
+    from .test_torch_lpips import jax_layout_weights
+
+    np.savez(tmp_path / "lpips_alex.npz", **jax_layout_weights(12))
+    monkeypatch.setenv("EVREAL_LPIPS_WEIGHTS", str(tmp_path / "lpips_alex.npz"))
+    monkeypatch.setattr(jreg, "_REGISTRY", {})
+    monkeypatch.setattr(jreg, "_builtins_done", False)
+    monkeypatch.setattr(jrunner, "DEFAULT_CHUNK_T", chunk_t)
+    monkeypatch.setattr(jbatched, "_EVAL_MESH", None)
+    monkeypatch.setattr(staging, "_compute_seen", False)
+    monkeypatch.setattr(staging, "_staged_bytes", 0)
+    cfg = inputs["method_configs"]["FireNet+"]
+    metrics = ["mse", "ssim", "lpips"]
+    res = {}
+    for name, run in (
+            ("jax", lambda: jbatched.eval_method_on_sequence_group(
+                "SYNS", EVAL_CONFIG, "FireNet+",
+                jrunner.MethodBundle("FireNet+", cfg), cfg,
+                sequences(JSequence, inputs["seq_dirs"]), metrics)),
+            ("torch", lambda: tbatched.eval_method_on_sequence_group(
+                "SYNS", EVAL_CONFIG, "FireNet+",
+                trunner.MethodBundle("FireNet+", cfg, "cpu"), cfg,
+                sequences(Sequence, inputs["seq_dirs"]), metrics))):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        res[name] = run()
+    for i, ((nj, sj), (nt, st)) in enumerate(zip(res["jax"], res["torch"])):
+        assert nj == nt > 0 and sj.keys() == st.keys() == set(metrics)
+        for metric in metrics:
+            a, b = (np.loadtxt(tmp_path / k / "outputs/std/SYNS" / f"seq{i}" /
+                               "FireNet+" / f"{metric}.txt")
+                    for k in ("jax", "torch"))
+            np.testing.assert_array_equal(a[:, 0], b[:, 0])
+            np.testing.assert_allclose(b[:, 1], a[:, 1], atol=2e-5)
+        assert abs(sj["lpips"] - st["lpips"]) <= 2e-5

@@ -1,6 +1,8 @@
 """Every model class of the port on the card against the CPU: 4-step
 recurrent rollouts at a padded odd sensor size, f32 with TF32 off, within
-1e-4; and one bf16 step whose state stays bf16 (SPADE's flag bool). These
+1e-4; and one bf16 step whose state stays bf16 (SPADE's flag bool). Then
+LPIPS (AlexNet widths) and MANIQA (small widths, an upscaled odd frame) on
+the card against the CPU under ``f32_parity``, within 1e-4. These
 tests need an NVIDIA GPU and skip without one; the file imports nothing of
 JAX, so on the card they run as
 
@@ -96,3 +98,53 @@ def test_bf16_step_stays_bf16(cuda_device, cls):
     dtypes = {t.dtype for t in leaves(state)}
     assert dtypes == ({torch.bfloat16, torch.bool} if cls == "SpadeE2vid"
                       else {torch.bfloat16})
+
+
+# ---------------------------------------------------------------------------
+# the learned metrics: LPIPS and MANIQA on the card against the CPU
+
+
+def lpips_weights(seed=0):
+    """Random LPIPS weights in the port's layout (OIHW), AlexNet widths."""
+    rng = np.random.default_rng(seed)
+    w = {}
+    for i, (idx, cin, cout, k) in enumerate(
+            [(0, 3, 64, 11), (3, 64, 192, 5), (6, 192, 384, 3),
+             (8, 384, 256, 3), (10, 256, 256, 3)]):
+        w[f"features.{idx}.weight"] = rng.normal(0, 0.1, (cout, cin, k, k))
+        w[f"features.{idx}.bias"] = rng.normal(0, 0.1, cout)
+        w[f"lin.{i}.weight"] = np.abs(rng.normal(0, 0.1, (1, cout, 1, 1)))
+    return {k: torch.from_numpy(v.astype(np.float32)) for k, v in w.items()}
+
+
+@pytest.mark.cuda
+def test_lpips_card_matches_cpu(cuda_device):
+    from evreal_tpu_torch.metrics.lpips import lpips
+
+    w = lpips_weights()
+    rng = np.random.default_rng(3)
+    img = torch.from_numpy(rng.random((4, H * 2, W * 2)).astype(np.float32))
+    ref = (img + 0.1 * torch.from_numpy(rng.normal(
+        size=img.shape).astype(np.float32))).clamp(0, 1)
+    with torch.no_grad(), f32_parity():
+        want = lpips(w, img, ref)
+        got = lpips({k: v.to(cuda_device) for k, v in w.items()},
+                    img.to(cuda_device), ref.to(cuda_device)).cpu()
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_maniqa_card_matches_cpu(cuda_device):
+    from evreal_tpu_torch.metrics import maniqa
+
+    raw = maniqa.random_params(0, vit_dim=24, vit_blocks=10, swin_dims=(8, 4),
+                               dim_mlp=16)
+    w = {k: torch.from_numpy(v) for k, v in raw.items()
+         if not k.startswith("_meta")}
+    img = torch.from_numpy(np.random.default_rng(4).uniform(
+        size=(181, 239)).astype(np.float32))
+    with torch.no_grad(), f32_parity():
+        want = maniqa.maniqa(w, img, n_crops=2)
+        got = maniqa.maniqa({k: v.to(cuda_device) for k, v in w.items()},
+                            img.to(cuda_device), n_crops=2).cpu()
+    assert abs(float(got - want)) <= 1e-4

@@ -1,9 +1,12 @@
 """Both command lines on the CPU over one small synthetic sequence: the JAX
 package's (``eval.py``, evreal_tpu.cli) and the port's
 (``python -m evreal_tpu_torch``), with the same random-init narrow E2VID
-and FireNet+ weights saved as ``.npz`` + sidecar. Score rows agree within
-2e-5, PNG frames within 1 grey level, and timestamps, event rates and
-frame sets byte for byte."""
+and FireNet+ weights saved as ``.npz`` + sidecar and ``-qm mse ssim
+lpips`` with one random LPIPS ``.npz`` (``EVREAL_LPIPS_WEIGHTS``). Score
+rows agree within 2e-5, PNG frames within 1 grey level, and timestamps,
+event rates, frame sets and ``done.json``'s metrics byte for byte. Without
+the LPIPS file the port prints the JAX package's skip line and writes the
+same mse/ssim rows."""
 
 import json
 import os
@@ -21,6 +24,8 @@ from evreal_tpu_torch.models.init import init_e2vid, init_firenet
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 from make_synthetic_sequence import make_sequence  # noqa: E402
+
+from .test_torch_lpips import jax_layout_weights  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -44,7 +49,8 @@ METHODS = {
                   "post_process_norm": "none"}),
 }
 ARGS = ["-m", "E2VID", "FireNet+", "-c", "std", "-d", "SYN", "-qm", "mse",
-        "ssim"]
+        "ssim", "lpips"]
+METRICS = ("mse", "ssim", "lpips")
 
 
 def write_inputs(root):
@@ -62,6 +68,7 @@ def write_inputs(root):
             json.dumps(cfg))
     (root / "config" / "dataset" / "SYN.json").write_text(json.dumps(
         {"root_path": "data/SYN", "sequences": {"seq0": {}}}))
+    np.savez(root / "lpips_alex.npz", **jax_layout_weights(11))
 
 
 @pytest.fixture(scope="module")
@@ -70,6 +77,7 @@ def runs(tmp_path_factory):
     import evreal_tpu.utils
     from evreal_tpu.cli import eval_main
     from evreal_tpu.harness import staging
+    from evreal_tpu.metrics import registry as jreg
 
     root = tmp_path_factory.mktemp("eval")
     write_inputs(root)
@@ -84,6 +92,10 @@ def runs(tmp_path_factory):
             # and restore it for the tests that run after this module
             mp.setattr(staging, "_compute_seen", False)
             mp.setattr(staging, "_staged_bytes", 0)
+            # the JAX registry reads the LPIPS file once per process
+            mp.setattr(jreg, "_REGISTRY", {})
+            mp.setattr(jreg, "_builtins_done", False)
+            mp.setenv("EVREAL_LPIPS_WEIGHTS", str(root / "lpips_alex.npz"))
             for name, run in (("jax", lambda: eval_main(ARGS)),
                               ("torch", lambda: torch_main(
                                   ARGS + ["--device", "cpu"]))):
@@ -93,6 +105,7 @@ def runs(tmp_path_factory):
                 (root / "outputs").rename(out[name])
     finally:
         os.chdir(cwd)
+    out["root"] = root
     return out
 
 
@@ -102,7 +115,7 @@ def seq_dir(base, method):
 
 @pytest.mark.parametrize("method", sorted(METHODS))
 def test_score_rows_agree(runs, method):
-    for metric in ("mse", "ssim"):
+    for metric in METRICS:
         rows = [np.loadtxt(seq_dir(runs[k], method) / f"{metric}.txt")
                 for k in ("jax", "torch")]
         assert rows[0].shape == rows[1].shape and len(rows[0]) >= 30
@@ -120,6 +133,8 @@ def test_tree_and_text_files_match(runs, method):
     ja, jb = (json.loads((d / "done.json").read_text()) for d in (a, b))
     assert ja["num_evaluated"] == jb["num_evaluated"]
     assert ja["settings"] == jb["settings"]
+    assert ja["metrics"] == jb["metrics"] == list(METRICS)
+    assert ja["mean_scores"].keys() == jb["mean_scores"].keys()
 
 
 @pytest.mark.parametrize("method", sorted(METHODS))
@@ -143,7 +158,23 @@ def test_entry_points_refuse_to_run_on_cpu_unasked(monkeypatch):
         torch_main(["-m", "E2VID", "-c", "std", "-d", "SYN"])
 
 
-def test_unported_metric_fails_fast():
-    with pytest.raises(NotImplementedError, match="lpips"):
-        evaluate(["E2VID"], ["std"], ["SYN"], ["mse", "lpips"],
-                 device="cpu")
+def test_unported_metric_fails_fast(runs, monkeypatch, capsys):
+    """Without the LPIPS file the default ``-qm`` list (mse ssim lpips)
+    skips lpips with the JAX package's line and the run goes on: the same
+    mse/ssim rows as with it, and no lpips.txt."""
+    monkeypatch.chdir(runs["root"])
+    monkeypatch.setenv("EVREAL_LPIPS_WEIGHTS",
+                       str(runs["root"] / "absent.npz"))
+    torch_main(ARGS[:ARGS.index("-qm")] + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "lpips weights unavailable (see tools/convert_lpips.py); " \
+        "skipping lpips" in out
+    assert "Exception" not in out
+    for method in METHODS:
+        base = seq_dir(runs["root"] / "outputs", method)
+        for metric in ("mse", "ssim"):
+            assert (base / f"{metric}.txt").read_bytes() == (seq_dir(
+                runs["torch"], method) / f"{metric}.txt").read_bytes()
+        assert not (base / "lpips.txt").exists()
+        assert json.loads((base / "done.json").read_text())["metrics"] == \
+            ["mse", "ssim"]

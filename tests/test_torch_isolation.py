@@ -1,5 +1,6 @@
 """The port imports nothing of JAX, of the JAX package or of OpenCV (the
-card's machine has neither). Checked in a fresh interpreter: this test
+card's machine has neither), and no pyiqa (looked for only when a metric
+name is not a built-in). Checked in a fresh interpreter: this test
 process has imported jax already (tests/conftest.py)."""
 
 import json
@@ -18,7 +19,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "evreal_tpu", "cv2"))
+             if k.split(".")[0] in ("jax", "jaxlib", "evreal_tpu", "cv2",
+                                    "pyiqa"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -39,4 +41,10 @@ def test_port_imports_no_jax_and_no_evreal_tpu():
             "evreal_tpu_torch.models.colornet",
             "evreal_tpu_torch.harness.histeq",
             "evreal_tpu_torch.harness.video",
-            "evreal_tpu_torch.native"} <= set(report["modules"])
+            "evreal_tpu_torch.native",
+            "evreal_tpu_torch.metrics.registry",
+            "evreal_tpu_torch.metrics.lpips",
+            "evreal_tpu_torch.metrics.niqe",
+            "evreal_tpu_torch.metrics.brisque",
+            "evreal_tpu_torch.metrics.maniqa",
+            "evreal_tpu_torch.metrics.pyiqa_bridge"} <= set(report["modules"])

@@ -1,6 +1,8 @@
 """The port's metrics, score tracking and PNG writer against the JAX
 package's (metrics/functional.py, metrics/tracker.py, harness/outputs.py)."""
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -13,7 +15,8 @@ from evreal_tpu_torch.harness.outputs import (
     save_inferred_image,
 )
 from evreal_tpu_torch.harness.runner import accumulate_mean_scores
-from evreal_tpu_torch.metrics.functional import mse, resolve, ssim
+from evreal_tpu_torch.metrics.functional import mse, ssim
+from evreal_tpu_torch.metrics.registry import resolve
 from evreal_tpu_torch.metrics.tracker import EvalMetricsTracker, MetricTracker
 
 torch.set_num_threads(1)
@@ -44,12 +47,18 @@ def test_ssim_identical_is_one_and_small_raises():
         ssim(torch.zeros(1, 10, 40), torch.zeros(1, 10, 40))
 
 
-def test_resolve_names_the_roadmap_for_unported_metrics():
-    assert [n for n, _ in resolve(["mse", "ssim"])] == ["mse", "ssim"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve(["lpips"])
-    with pytest.raises(ValueError, match="unknown metric"):
-        resolve(["psnr"])
+def test_resolve_names_the_roadmap_for_unported_metrics(tmp_path,
+                                                       monkeypatch, capsys):
+    """As the JAX registry: a gated metric without its file and an unknown
+    name are skipped with their lines, and the other names resolve."""
+    monkeypatch.setenv("EVREAL_LPIPS_WEIGHTS", str(tmp_path / "none.npz"))
+    monkeypatch.setitem(sys.modules, "pyiqa", None)
+    specs = resolve(["mse", "lpips", "ssim", "psnr"])
+    assert [s.name for s in specs] == ["mse", "ssim"]
+    assert specs[0].fn is mse and specs[1].fn is ssim
+    assert capsys.readouterr().out == (
+        "lpips weights unavailable (see tools/convert_lpips.py); skipping "
+        "lpips\nUnknown metric psnr\n")
 
 
 def test_png_writer_round_trip(tmp_path):
