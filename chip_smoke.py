@@ -114,9 +114,27 @@ Phases, each printing one JSON line:
    one crop (1e-3), ms per frame at 20 crops with peak memory; the
    voxelizer held to its int64 plain version at these paths' first
    launches;
-9. the ``kernels`` line: per ported kernel its launches on its path (and
-   per method and path in the methods, eval-config and metrics phases),
-   error and times beside its bound;
+9. serve — the serving engine (``evreal_tpu_torch/serve.py``) at 180 x 240
+   on windows of 30,000 synthetic events (capacity 32768), engines from
+   phase 6's ``.pth`` files through ``ReconEngine.from_method``: one
+   stream per method, 8 warm-up and 64 timed pushes, ms per push (p50,
+   p90, p99, mean) for f32 frames and ``u8`` (E2VID, E2VID+, FireNet,
+   FireNet+, SSL-E2VID; 8 pushes as a run check for ET-Net, SPADE-E2VID
+   and HyperE2VID, whose widths are guessed); E2VID groups of 4 and 16
+   lanes, f32 on the f32 wire and bf16 on compact4 (ms per push_group,
+   aggregate frames/s); the Unix-socket round trip with the server in a
+   thread, beside the in-process p50; 32 pushes against the chunked
+   offline runner (1e-5), 4 against the CPU engine (raw frames, 1e-4), a
+   4-lane group with an idle lane against solo streams (5e-4), 4 threads
+   on 4 streams and 2 groups against the same pushes made serially
+   (1e-4; bit-equality reported); one voxelizer launch per push and per
+   push_group (counts set to 0 before each path); the voxelizer at the
+   serve shapes (T = 1, 4, 16 windows on the packer's buffers; HIGHEST on
+   the f32 wire, DEFAULT on compact4) bit-equal to its int64 plain version
+   and timed;
+10. the ``kernels`` line: per ported kernel its launches on its path (and
+   per method and path in the methods, eval-config, metrics and serve
+   phases), error and times beside its bound, and its serve shapes;
 
 then nvidia-smi's name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -2025,6 +2043,395 @@ def phase_metrics(torch, vc, vox, work, card, device="cuda"):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the serving engine (evreal_tpu_torch/serve.py)
+# ---------------------------------------------------------------------------
+
+SERVE_LATENCY_METHODS = ("E2VID", "E2VID+", "FireNet", "FireNet+",
+                         "SSL-E2VID")
+SERVE_CHECK_METHODS = ("ET-Net", "SPADE-E2VID", "HyperE2VID")  # guessed
+SERVE_WARMUP, SERVE_TIMED = 8, 64      # pushes per stream run
+SERVE_CHECK_PUSHES = 8
+SERVE_LANES = (4, 16)
+SERVE_GROUP_WARMUP, SERVE_GROUP_TIMED = 4, 16
+SERVE_OFFLINE = 32    # pushes held to the chunked offline runner
+SERVE_CPU = 4         # pushes held to the CPU engine
+SERVE_THREAD_PUSHES = 8
+SERVE_SHAPES = (("T1_stream", 1), ("T4_group", 4), ("T16_group", 16))
+SERVE_POOL = 80       # synthetic windows of EVENTS_PER_WINDOW events
+TOL_SERVE_OFFLINE = 1e-5
+TOL_SERVE_GROUP = 5e-4  # tests/test_serve.py:191-195
+
+
+def serve_windows(n, hw, seed=0):
+    """``n`` windows of ``EVENTS_PER_WINDOW`` uniform events over 30 ms
+    each, as a client pushes them: int16 coordinates, absolute float64
+    timestamps, on-disk {0,1} polarity."""
+    rng = np.random.default_rng(seed)
+    e = EVENTS_PER_WINDOW
+    out = []
+    for i in range(n):
+        out.append((rng.integers(0, hw[1], e).astype(np.int16),
+                    rng.integers(0, hw[0], e).astype(np.int16),
+                    np.sort(rng.uniform(0.03 * i, 0.03 * (i + 1), e)),
+                    rng.integers(0, 2, e).astype(np.uint8)))
+    return out
+
+
+def latency(ms):
+    a = np.asarray(ms)
+    return {"p50": float(np.percentile(a, 50)),
+            "p90": float(np.percentile(a, 90)),
+            "p99": float(np.percentile(a, 99)), "mean": float(a.mean()),
+            "n": int(a.size)}
+
+
+def timed_calls(call, args, warmup, timed):
+    """``call(args(k))`` for ``warmup`` then ``timed`` calls, each timed on
+    the host clock (a push returns host frames, so the device is done);
+    returns (ms of the timed calls, the last result)."""
+    for k in range(warmup):
+        call(args(k))
+    ms = []
+    for k in range(warmup, warmup + timed):
+        t0 = time.perf_counter()
+        out = call(args(k))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, out
+
+
+def host_pack_ms(serve, windows, hw, cap, wire, reps=5):
+    """Median host ms to pack ``windows`` into one pooled (n, 1, E)
+    buffer set on ``wire``, as ``push_group`` does."""
+    from evreal_tpu_torch.data.packing import alloc_buffers, wire_dtypes
+
+    dtypes = wire_dtypes(wire, True, hw)
+    bufs = alloc_buffers((len(windows), 1), cap, dtypes)
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for j, w in enumerate(windows):
+            serve._pack_window(*w, capacity=cap, dtypes=dtypes, resolution=hw,
+                               out={k: v[j] for k, v in bufs.items()})
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def profile_calls(torch, call, n):
+    """``call(k)`` for k < n traced on the device only: busy ms (the union
+    of device events) against the host's wall ms, per call, and the top
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(n):
+            call(k)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, _, by_name = device_time(torch, prof)
+    measured = busy_ms is not None
+    return {"calls": n, "wall_ms_per_call": wall_ms / n,
+            "device_busy_ms_per_call": busy_ms / n if measured else None,
+            "device_idle_share": (1 - busy_ms / wall_ms) if measured
+            else None,
+            "device_events_per_call": sum(c for _, c in by_name.values()) / n,
+            "voxelize_kernels": voxelize_kernels(by_name),
+            "top_kernels": top_kernels(by_name, 6)}
+
+
+def phase_serve(torch, vc, vox, work, card, device="cuda"):
+    """The serving engine at ECD's 180 x 240 on windows of 30,000
+    synthetic events (capacity 32768), engines from phase 6's ``.pth``
+    files through ``ReconEngine.from_method``: push latency per method
+    (f32 frames and ``u8``), run checks of the methods with guessed widths,
+    E2VID groups of 4 and 16 lanes (f32 on the f32 wire, bf16 on
+    compact4), the socket round trip, the engine against the chunked
+    offline runner, the CPU engine and solo streams, 4 threads at once;
+    device profiles of E2VID pushes and of each group's pushes; the
+    voxelizer at the serve shapes (T = 1, 4, 16) bit-equal to its
+    int64 plain version and timed. Launches are counted per path, the
+    counts set to 0 just before each."""
+    import threading
+
+    from evreal_tpu_torch import serve
+    from evreal_tpu_torch.data.packing import (alloc_buffers,
+                                               bucket_capacity, wire_dtypes)
+    from evreal_tpu_torch.harness.runner import MethodRunner
+
+    c = ECD
+    hw = (c["h"], c["w"])
+    cap = bucket_capacity(EVENTS_PER_WINDOW)
+    t_phase = time.perf_counter()
+    pretrained = os.path.join(work, "methods", "pretrained")
+    wins = serve_windows(SERVE_POOL, hw)
+    f32 = dict(EVREAL_DTYPE=None, EVREAL_WIRE=None)
+    bf16 = dict(EVREAL_DTYPE="bfloat16", EVREAL_WIRE="compact4")
+    launches = {}
+
+    def engine(method, dev=device, **cfg):
+        cfg["model_path"] = os.path.join(pretrained, method, "model.pth")
+        return serve.ReconEngine.from_method(method, cfg, device=dev)
+
+    def counted(method, path, prec, want, fn):
+        """``fn()`` with the voxelizer's counts set to 0 just before and
+        read just after: ``want`` launches at ``prec``, none at the
+        other."""
+        vc.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(vc.launches_by_precision)
+        expect = dict(dict.fromkeys(vc.PRECISIONS, 0), **{prec: want})
+        check(got == expect, f"serve {method} {path}: voxelizer launches "
+              f"{got}, want {expect} (one per push)")
+        launches.setdefault(method, {})[path] = got
+        return out
+
+    def window(k):
+        return wins[k % len(wins)]
+
+    # push latency, one stream per method
+    lat = {}
+    with env(**f32):
+        for method in SERVE_LATENCY_METHODS + SERVE_CHECK_METHODS:
+            eng = engine(method)
+            sid = eng.open_stream(*hw)
+            res = {}
+            if method in SERVE_LATENCY_METHODS:
+                for label, u8 in (("f32", False), ("u8", True)):
+                    eng.reset(sid)
+                    ms, frame = counted(
+                        method, f"stream_{label}", "highest",
+                        SERVE_WARMUP + SERVE_TIMED,
+                        lambda: timed_calls(
+                            lambda w: eng.push(sid, *w, u8=u8), window,
+                            SERVE_WARMUP, SERVE_TIMED))
+                    check(frame.shape == hw and frame.dtype == (
+                        np.uint8 if u8 else np.float32)
+                        and np.isfinite(frame).all(),
+                        f"serve {method} {label}: frame {frame.shape} "
+                        f"{frame.dtype}")
+                    res[f"ms_per_push_{label}"] = latency(ms)
+                if method == "E2VID":
+                    res["profile_f32"] = profile_calls(
+                        torch, lambda k: eng.push(sid, *window(k)), 16)
+                    res["host_pack_ms"] = host_pack_ms(
+                        serve, [window(0)], hw, cap, "f32")
+            else:
+                frames = counted(method, "stream_f32", "highest",
+                                 SERVE_CHECK_PUSHES,
+                                 lambda: [eng.push(sid, *window(k))
+                                          for k in range(SERVE_CHECK_PUSHES)])
+                check(all(f.shape == hw and np.isfinite(f).all()
+                          for f in frames), f"serve {method}: frames")
+                res["run_check_pushes"] = SERVE_CHECK_PUSHES
+            lat[method] = res
+            emit({"phase": "serve_latency", "method": method, "card": card,
+                  "sensor": list(hw), "events_per_window": EVENTS_PER_WINDOW,
+                  "capacity": cap, "launches": launches[method], **res})
+            del eng
+
+    # E2VID groups: ms per push_group and aggregate frames/s
+    groups = {}
+    for label, switches, prec in (("f32", f32, "highest"),
+                                  ("bf16_compact4", bf16, "default")):
+        with env(**switches):
+            eng = engine("E2VID")
+            for n in SERVE_LANES:
+                gid = eng.open_group(n, *hw)
+                ms, frames = counted(
+                    "E2VID", f"group{n}_{label}", prec,
+                    SERVE_GROUP_WARMUP + SERVE_GROUP_TIMED,
+                    lambda: timed_calls(
+                        lambda ws: eng.push_group(gid, ws),
+                        lambda k: [window(k * n + j) for j in range(n)],
+                        SERVE_GROUP_WARMUP, SERVE_GROUP_TIMED))
+                check(frames.shape == (n,) + hw and np.isfinite(frames).all(),
+                      f"serve group {n} {label}: frames {frames.shape}")
+                ms = latency(ms)
+                groups[f"{n}_lanes_{label}"] = {
+                    "ms_per_push_group": ms,
+                    "frames_per_s": n * 1e3 / ms["mean"],
+                    "frames_per_s_at_p50": n * 1e3 / ms["p50"],
+                    "profile": profile_calls(torch, lambda k: eng.push_group(
+                        gid, [window(k * n + j) for j in range(n)]), 4),
+                    "host_pack_ms": host_pack_ms(
+                        serve, [window(j) for j in range(n)], hw, cap,
+                        switches["EVREAL_WIRE"] or "f32")}
+                eng.close_group(gid)
+            del eng
+    emit({"phase": "serve_groups", "card": card, "groups": groups,
+          "launches": {k: v for k, v in launches["E2VID"].items()
+                       if k.startswith("group")}})
+
+    with env(**f32):
+        # the socket round trip, the server in a thread of this process
+        eng = engine("E2VID")
+        path = os.path.join(work, "serve.sock")
+        server = serve.ReconServer(eng, path)
+        thread = threading.Thread(target=server.serve_forever,
+                                  kwargs={"poll_interval": 0.05},
+                                  daemon=True)
+        thread.start()
+        try:
+            client = serve.ReconClient(path)
+            client._sock.settimeout(120)
+            sid = client.open_stream(*hw)
+            ms, frame = counted(
+                "E2VID", "socket_f32", "highest", SERVE_WARMUP + SERVE_TIMED,
+                lambda: timed_calls(lambda w: client.push(sid, *w), window,
+                                    SERVE_WARMUP, SERVE_TIMED))
+            stats = client.stats()
+            client.close()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(60)
+        check(not thread.is_alive(), "serve: the server thread did not end")
+        check(frame.shape == hw and stats["frames"] == len(ms) + SERVE_WARMUP,
+              f"serve socket: frame {frame.shape}, stats {stats}")
+        sock = {"round_trip_ms": latency(ms),
+                "in_process_p50_ms": lat["E2VID"]["ms_per_push_f32"]["p50"],
+                "stats": stats}
+        emit({"phase": "serve_socket", "card": card, **sock})
+
+        # 32 pushes against the chunked offline runner on the card
+        eng = engine("E2VID")
+        sid = eng.open_stream(*hw)
+        stream = np.stack([eng.push(sid, *window(k))
+                           for k in range(SERVE_OFFLINE)])
+        runner = MethodRunner(eng.model, event_norm=eng.event_norm,
+                              post_norm=eng.post_norm, height=hw[0],
+                              width=hw[1], num_bins=eng.num_bins,
+                              device=device, chunk_t=SERVE_OFFLINE)
+        dtypes = eng._streams[sid].dtypes
+        host = alloc_buffers((SERVE_OFFLINE,), cap, dtypes)
+        for k in range(SERVE_OFFLINE):
+            serve._pack_window(*window(k), capacity=cap, dtypes=dtypes,
+                               resolution=hw, out={
+                                   key: v[k:k + 1]
+                                   for key, v in host.items()})
+        _, _, clipped = runner.run(runner.init_state(), runner.upload(host),
+                                   SERVE_OFFLINE)
+        offline_err = float(np.abs(stream - clipped.cpu().numpy()).max())
+        check(offline_err <= TOL_SERVE_OFFLINE, f"serve: {SERVE_OFFLINE} "
+              f"pushes vs the offline runner {offline_err} > "
+              f"{TOL_SERVE_OFFLINE}")
+
+        # 4 pushes against the CPU engine: raw frames (post-norm 'none')
+        # at the raw reconstructions' bound; the robust frames reported
+        raw = {}
+        for dev in (device, "cpu"):
+            for norm in ("none", "robust"):
+                e = engine("E2VID", dev, post_process_norm=norm)
+                s = e.open_stream(*hw)
+                raw[dev, norm] = np.stack([e.push(s, *window(k))
+                                           for k in range(SERVE_CPU)])
+        cpu_err = float(np.abs(raw[device, "none"] - raw["cpu", "none"]).max())
+        check(cpu_err <= TOL_RECON, f"serve: card vs CPU engine raw frames "
+              f"{cpu_err} > {TOL_RECON}")
+        robust_cpu_err = float(np.abs(raw[device, "robust"]
+                                      - raw["cpu", "robust"]).max())
+
+        # a 4-lane group with an idle lane against solo streams
+        lanes = [[window(40 + 3 * j + t) for t in range(3)] for j in range(4)]
+        idle = (1, 3)
+        gid = eng.open_group(4, *hw)
+        got = [eng.push_group(gid, [None if (t, j) == idle else lanes[j][t]
+                                    for j in range(4)]) for t in range(3)]
+        group_err = 0.0
+        for j in range(4):
+            s = eng.open_stream(*hw)
+            for t in range(3):
+                w = serve._empty_window() if (t, j) == idle else lanes[j][t]
+                group_err = max(group_err, float(np.abs(
+                    got[t][j] - eng.push(s, *w)).max()))
+        check(group_err <= TOL_SERVE_GROUP, f"serve: 4-lane group vs solo "
+              f"streams {group_err} > {TOL_SERVE_GROUP}")
+
+        # 4 threads at once on 4 streams and 2 groups of 4 lanes (threads 0
+        # and 1 push to a group between their stream's pushes), against the
+        # same pushes made one thread after another
+        def job(e, ids, k):
+            out = []
+            for t in range(SERVE_THREAD_PUSHES):
+                out.append(e.push(ids[k], *window(10 * k + t)))
+                if k < 2:
+                    out.append(e.push_group(ids[4 + k], [
+                        window(50 + 8 * k + t + j) for j in range(4)]))
+            return out
+
+        def open_all(e):
+            return ([e.open_stream(*hw) for _ in range(4)]
+                    + [e.open_group(4, *hw) for _ in range(2)])
+
+        serial_eng = engine("E2VID")
+        ids = open_all(serial_eng)
+        serial = [job(serial_eng, ids, k) for k in range(4)]
+        threaded_eng = engine("E2VID")
+        ids = open_all(threaded_eng)
+        threaded, errors = [None] * 4, []
+        barrier = threading.Barrier(4)
+
+        def worker(k):
+            try:
+                barrier.wait(60)
+                threaded[k] = job(threaded_eng, ids, k)
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(repr(exc))
+
+        workers = [threading.Thread(target=worker, args=(k,), daemon=True)
+                   for k in range(4)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(300)
+        check(not errors and not any(w.is_alive() for w in workers),
+              f"serve threads: {errors or 'a thread did not end'}")
+        thread_err = max(float(np.abs(a - b).max())
+                         for s, t in zip(serial, threaded)
+                         for a, b in zip(s, t))
+        check(thread_err <= TOL_LOCKSTEP, f"serve threads vs serial "
+              f"{thread_err} > {TOL_LOCKSTEP}")
+    emit({"phase": "serve_correctness", "card": card,
+          "offline_pushes": SERVE_OFFLINE,
+          "max_abs_err_vs_offline_runner": offline_err,
+          "cpu_pushes": SERVE_CPU, "raw_max_abs_err_vs_cpu": cpu_err,
+          "robust_frames_max_abs_err_vs_cpu": robust_cpu_err,
+          "group_idle_lane_max_abs_err_vs_solo": group_err,
+          "threads_max_abs_err_vs_serial": thread_err,
+          "threads_bit_equal_to_serial": thread_err == 0.0})
+
+    # the voxelizer at the serve shapes, on the packer's buffers; the
+    # accumulate kernel's grid as the launch reports it
+    tiles = vc.tile_count(vc.tile_plan(c["b"], *hw), *hw)
+    shapes = {}
+    for prec, wire in (("highest", "f32"), ("default", "compact4")):
+        dtypes = wire_dtypes(wire, True, hw)
+        for label, t_n in SERVE_SHAPES:
+            host = alloc_buffers((t_n, 1), cap, dtypes)
+            for j in range(t_n):
+                serve._pack_window(*window(j), capacity=cap, dtypes=dtypes,
+                                   resolution=hw,
+                                   out={k: v[j] for k, v in host.items()})
+            bufs = {k: torch.from_numpy(v.reshape((t_n,) + v.shape[2:])).to(
+                device) for k, v in host.items()}
+            err = hold_to_plain(torch, vox, bufs, c["b"], hw, prec,
+                                f"serve {label} ({wire} wire)")[0]
+            grid = vc.last_accumulate_grid()
+            shapes.setdefault(prec, {})[label] = dict(
+                time_variant(torch, vox, bufs, prec, hw, c["b"]), wire=wire,
+                capacity=cap, max_abs_err=err, tiles_per_window=tiles,
+                accumulate_blocks=grid)
+    result = {"phase": "serve", "card": card, "sensor": list(hw),
+              "events_per_window": EVENTS_PER_WINDOW, "capacity": cap,
+              "latency": lat, "groups": groups, "socket": sock,
+              "launches": launches, "voxelize_at_serve_shapes": shapes,
+              "bit_equal_int64_plain": True,
+              "phase_s": time.perf_counter() - t_phase}
+    emit(result)
+    return result
 
 
 def main():
@@ -2058,6 +2465,7 @@ def main():
             methods = phase_methods(torch, vc, vox, work, smi)
             configs = phase_eval_configs(torch, vc, vox, work, smi)
             metrics = phase_metrics(torch, vc, vox, work, smi)
+            served = phase_serve(torch, vc, vox, work, smi)
         finally:
             os.chdir(cwd)
     by_method = methods["launches"]
@@ -2091,6 +2499,17 @@ def main():
             "windows")} for k, v in at_launch.items()
             if v["precision"] == prec}
 
+    def serve_launches(prec):
+        return {m: {p: n[prec] for p, n in v.items() if n[prec]}
+                for m, v in served["launches"].items()
+                if any(n[prec] for n in v.values())}
+
+    def serve_shapes(prec):
+        return {k: {kk: v[kk] for kk in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "windows",
+            "wire", "max_abs_err", "accumulate_blocks")}
+            for k, v in served["voxelize_at_serve_shapes"][prec].items()}
+
     source = "evreal_tpu_torch/kernels/csrc/voxelize.cu"
     f32_times = kern["times_f32_wire"]["highest"]
     bf16_times = lock["kernel_at_lockstep_shape"]["default_compact4"]
@@ -2107,7 +2526,8 @@ def main():
              list(kern["max_abs_err"]["highest"].values())
              + [lock["kernel_lockstep_max_abs_err"]["highest_f32"],
                 color_launch["max_abs_err"]]
-             + launch_errs("highest")),
+             + launch_errs("highest")
+             + [v["max_abs_err"] for v in serve_shapes("highest").values()]),
          "ms": f32_times["ms"], "plain_ms": f32_times["plain_ms"],
          "bound_ms": f32_times["bound_ms"], "bound_by": f32_times["bound_by"],
          "library_ms": f32_times["library_ms"],
@@ -2123,6 +2543,8 @@ def main():
          "color_launch": {k: color_launch[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "windows", "sensor", "capacity", "max_abs_err")},
+         "serve_launches": serve_launches("highest"),
+         "serve_shapes": serve_shapes("highest"),
          "card": smi},
         {"name": "voxelize_windows_bf16_factors", "route": "cuda",
          "source": source,
@@ -2133,7 +2555,9 @@ def main():
          "max_abs_err": max(list(kern["max_abs_err"]["default"].values())
                             + [lock["kernel_lockstep_max_abs_err"][
                                 "default_compact4"]]
-                            + launch_errs("default")),
+                            + launch_errs("default")
+                            + [v["max_abs_err"] for v in
+                               serve_shapes("default").values()]),
          "ms": bf16_times["ms"], "plain_ms": bf16_times["plain_ms"],
          "bound_ms": bf16_times["bound_ms"],
          "bound_by": bf16_times["bound_by"],
@@ -2144,6 +2568,8 @@ def main():
                                     if n["default"]}
                                 for m, v in by_method.items()},
          "methods_launches": launch_times("default"),
+         "serve_launches": serve_launches("default"),
+         "serve_shapes": serve_shapes("default"),
          "card": smi}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

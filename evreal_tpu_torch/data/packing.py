@@ -126,6 +126,37 @@ def encode_compact4(xs, ys, ts, ps, resolution):
     return idx | (q << np.uint32(idx_bits)) | (pbit << np.uint32(31))
 
 
+def pack_row(out, row, xs, ys, ts, ps, resolution=None):
+    """Write one window's events and count into row ``row`` of ``out`` on
+    the wire its dtypes name (``wire_dtypes``); slots past the count are
+    left as they are. ``ts`` are absolute (zero-based here, in their own
+    dtype); ``ps`` on-disk {0,1} or ±1 (``polarity_bit``); ``resolution``
+    (h, w) is needed by the compact4 wire."""
+    n = len(xs)
+    out["count"][row] = n
+    if n == 0:
+        return
+    if "ev" in out:  # packed-u32 wire
+        out["ev"][row, :n] = encode_compact4(xs, ys, ts, ps, resolution)
+        return
+    if out["xs"].dtype == np.uint8:
+        # out-of-range coordinates park at the 255 sentinel; the
+        # voxelizer's bounds guard drops them
+        out["xs"][row, :n] = np.where((xs >= 0) & (xs < 256), xs, 255) \
+            .astype(np.uint8)
+        out["ys"][row, :n] = np.where((ys >= 0) & (ys < 256), ys, 255) \
+            .astype(np.uint8)
+    else:
+        out["xs"][row, :n] = xs
+        out["ys"][row, :n] = ys
+    ts = np.asarray(ts)
+    if out["ts"].dtype == np.uint16:
+        out["ts"][row, :n] = quantize_ts(ts, U16_TS_SCALE).astype(np.uint16)
+    else:
+        out["ts"][row, :n] = (ts - ts[0]).astype(np.float32)
+    out["ps"][row, :n] = polarity_bit(ps).astype(np.int8) * 2 - 1
+
+
 def bucket_capacity(max_count, minimum=_MIN_CAPACITY):
     cap = minimum
     while cap < max_count:
@@ -192,48 +223,14 @@ def pack_windows(seq, indices, capacity=None, out=None, metas=None,
                                  f"want {want}")
         zeroed = bool(out_zeroed)
 
-    if "ev" in out:  # packed-u32 wire
-        for row, meta in enumerate(metas):
-            n = meta["event_count"]
-            out["count"][row] = n
-            if not zeroed:
-                out["ev"][row, n:] = 0
-            if n == 0:
-                continue
-            i0, i1 = meta["idx0"], meta["idx1"]
-            xy = seq.xy[i0:i1]
-            out["ev"][row, :n] = encode_compact4(
-                xy[:, 0], xy[:, 1], seq.t[i0:i1], np.asarray(seq.p[i0:i1]),
-                resolution)
-        return out, metas
-
-    compact_ts = out["ts"].dtype == np.uint16
-    u8_coords = out["xs"].dtype == np.uint8
     for row, meta in enumerate(metas):
         n = meta["event_count"]
-        out["count"][row] = n
         if not zeroed:
-            for k in ("xs", "ys", "ts", "ps"):
-                out[k][row, n:] = 0
-        if n == 0:
-            continue
+            for k in out:
+                if k != "count":
+                    out[k][row, n:] = 0
         i0, i1 = meta["idx0"], meta["idx1"]
         xy = seq.xy[i0:i1]
-        if u8_coords:
-            xw, yw = xy[:, 0], xy[:, 1]
-            out["xs"][row, :n] = np.where(
-                (xw >= 0) & (xw < 256), xw, 255).astype(np.uint8)
-            out["ys"][row, :n] = np.where(
-                (yw >= 0) & (yw < 256), yw, 255).astype(np.uint8)
-        else:
-            out["xs"][row, :n] = xy[:, 0]
-            out["ys"][row, :n] = xy[:, 1]
-        ets = np.asarray(seq.t[i0:i1])
-        if compact_ts:
-            out["ts"][row, :n] = quantize_ts(ets, U16_TS_SCALE) \
-                .astype(np.uint16)
-        else:
-            out["ts"][row, :n] = (ets - ets[0]).astype(np.float32)
-        out["ps"][row, :n] = (
-            polarity_bit(seq.p[i0:i1]).astype(np.int8) * 2 - 1)
+        pack_row(out, row, xy[:, 0], xy[:, 1], seq.t[i0:i1],
+                 np.asarray(seq.p[i0:i1]), resolution)
     return out, metas

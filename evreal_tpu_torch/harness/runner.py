@@ -127,10 +127,13 @@ def compute_dtype():
 
 
 def cast_model(model, dtype):
-    """The model in the serving dtype: itself in f32, else a copy whose
-    parameters and buffers are rounded to ``dtype`` (round to nearest even,
-    as the JAX package's ``cast_params``)."""
-    if dtype == torch.float32:
+    """The model in the serving dtype: itself in f32 or when its floating
+    parameters and buffers already are ``dtype`` (so runners given one
+    cast copy share it), else a copy rounded to ``dtype`` (round to
+    nearest even, as the JAX package's ``cast_params``)."""
+    if dtype == torch.float32 or all(
+            t.dtype == dtype for t in (*model.parameters(), *model.buffers())
+            if t.is_floating_point()):
         return model
     return copy.deepcopy(model).to(dtype)
 

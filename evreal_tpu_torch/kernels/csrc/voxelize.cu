@@ -89,6 +89,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -593,6 +594,10 @@ struct Residency {
   int blocks = 0;
 };
 
+// The grid of the process's last accumulate launch, for
+// evreal_last_accumulate_grid.
+std::atomic<int> last_accumulate_grid{0};
+
 template <bool BF16, typename Rec>
 cudaError_t accumulate(const void* records, const int* tile_counts,
                        const int* starts, int* claims, float* out, int T,
@@ -624,10 +629,11 @@ cudaError_t accumulate(const void* records, const int* tile_counts,
     res.blocks = sms * (per_sm > 0 ? per_sm : 1);
   }
   const int total = T * g.n;
-  kernel<<<total < res.blocks ? total : res.blocks, kAccThreads, bytes,
-           stream>>>(static_cast<const typename Rec::Word*>(records),
-                     tile_counts, starts, claims, out, T, E, B, H, W,
-                     u16_scale, g);
+  const int grid = total < res.blocks ? total : res.blocks;
+  last_accumulate_grid.store(grid, std::memory_order_relaxed);
+  kernel<<<grid, kAccThreads, bytes, stream>>>(
+      static_cast<const typename Rec::Word*>(records), tile_counts, starts,
+      claims, out, T, E, B, H, W, u16_scale, g);
   return cudaGetLastError();
 }
 
@@ -787,6 +793,12 @@ extern "C" int evreal_voxelize_compact4(const void* ev, const void* count,
   return launch(wire, bf16 != 0, static_cast<const int*>(count), scratch,
                 static_cast<float*>(out), T, E, B, H, W, rows, cols,
                 u16_scale, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the last accumulate launch: min(T x tiles, the resident blocks
+// that the card's occupancy allows at the tile's shared memory).
+extern "C" int evreal_last_accumulate_grid() {
+  return last_accumulate_grid.load(std::memory_order_relaxed);
 }
 
 extern "C" const char* evreal_cuda_error_string(int err) {

@@ -115,8 +115,17 @@ def _load():
         lib.evreal_voxelize_compact4.restype = i32
         lib.evreal_cuda_error_string.argtypes = [i32]
         lib.evreal_cuda_error_string.restype = ctypes.c_char_p
+        lib.evreal_last_accumulate_grid.argtypes = []
+        lib.evreal_last_accumulate_grid.restype = i32
         _lib = lib
     return _lib
+
+
+def last_accumulate_grid():
+    """Blocks of this process's last accumulate launch: its persistent
+    grid, ``min(T x tiles, resident blocks)``, the resident count read
+    from the card's occupancy at the first launch of a tile size."""
+    return int(_load().evreal_last_accumulate_grid())
 
 
 def check_precision(precision):

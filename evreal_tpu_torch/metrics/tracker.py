@@ -107,7 +107,9 @@ class EvalMetricsTracker:
         self.start_time = quan_eval_start_time
         self.end_time = quan_eval_end_time
         self.ts_tol_ms = quan_eval_ts_tol_ms
-        self.metric_names = list(metric_names)
+        # no resolved name (an all-unknown -qm): the JAX tracker's file
+        # list, mse ssim lpips, whose files stay empty
+        self.metric_names = list(metric_names or ["mse", "ssim", "lpips"])
         if not has_reference_frames:  # only no-reference metrics can score
             self.metric_names = [m for m in self.metric_names
                                  if m in no_ref_metric_names]

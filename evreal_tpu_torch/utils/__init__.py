@@ -1,4 +1,5 @@
-"""Device selection, uploads and the f32 parity precision context."""
+"""Device selection, uploads, bounded downloads and the f32 parity
+precision context."""
 
 import contextlib
 
@@ -9,6 +10,34 @@ import torch
 # numpy's ``u8 / 255.0`` gives: a device divide by 255 may become a
 # reciprocal multiply, 1 ulp off for some values
 U8_LUT = np.arange(256, dtype=np.float32) / np.float32(255.0)
+
+# the most bytes one device->host copy of ``bounded_fetch`` moves (the JAX
+# package's ceiling, ``evreal_tpu/utils/__init__.py:8``)
+FETCH_BYTES = 8 * 1024 * 1024
+
+
+def _host_copy(tensor):
+    """A writable numpy array of ``tensor``'s values that shares no memory
+    with it (a CPU tensor is copied too)."""
+    return tensor.detach().to("cpu", copy=True).numpy()
+
+
+def bounded_fetch(tensor, max_bytes=FETCH_BYTES):
+    """Device->host copy of ``tensor`` in slices of at most ``max_bytes``
+    along the leading axis, recursing into an item of that axis when one
+    item alone is over the budget. Returns a writable numpy array with the
+    tensor's values (the JAX package's ``bounded_fetch``)."""
+    nbytes = tensor.numel() * tensor.element_size()
+    if tensor.dim() == 0 or nbytes <= max_bytes:
+        return _host_copy(tensor)
+    n0 = tensor.shape[0]
+    item = nbytes // max(n0, 1)
+    if item > max_bytes and tensor.dim() > 1:
+        return np.stack([bounded_fetch(tensor[i], max_bytes)
+                         for i in range(n0)])
+    per = max(1, int(max_bytes // max(item, 1)))
+    return np.concatenate([_host_copy(tensor[i:i + per])
+                           for i in range(0, n0, per)])
 
 
 def resolve_device(device=None):

@@ -47,4 +47,5 @@ def test_port_imports_no_jax_and_no_evreal_tpu():
             "evreal_tpu_torch.metrics.niqe",
             "evreal_tpu_torch.metrics.brisque",
             "evreal_tpu_torch.metrics.maniqa",
-            "evreal_tpu_torch.metrics.pyiqa_bridge"} <= set(report["modules"])
+            "evreal_tpu_torch.metrics.pyiqa_bridge",
+            "evreal_tpu_torch.serve"} <= set(report["modules"])

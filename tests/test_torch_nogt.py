@@ -429,3 +429,36 @@ def test_runtime_failure_drops_the_metric(data, tmp_path, monkeypatch,
     assert scores["boom"] == -1 and scores["mse"] > 0
     done = json.loads((base / "done.json").read_text())
     assert done["metrics"] == ["mse"] and "boom" not in done["mean_scores"]
+
+
+@pytest.mark.parametrize("lockstep", [False, True])
+def test_all_unknown_metrics_write_the_jax_tree(data, tmp_path, monkeypatch,
+                                                packages, lockstep):
+    """A ``-qm`` list of which no name resolves: the JAX tracker falls back
+    to ``mse ssim lpips`` for its file list and leaves those files empty;
+    the port writes the same tree (file names, empty metric files,
+    timestamps, ``done.json``) and returns the same counts and means."""
+    cfg = data["cfg"]
+    names = ("small", "kr") if lockstep else ("small",)
+
+    def go(S, single, group, bundle):
+        seqs = [sequence(S, data[n], n) for n in names]
+        if lockstep:
+            return group("SYN", eval_config("std"), "FireNet+", bundle(),
+                         cfg, seqs, ["nosuch", "Psnr"])
+        return [single("SYN", eval_config("std"), "FireNet+", bundle(), cfg,
+                       seqs[0], ["nosuch", "Psnr"])]
+
+    res = run_both(tmp_path, monkeypatch, packages, go)
+    assert res["torch"] == res["jax"]
+    for (n, means), name in zip(res["torch"], names):
+        assert n > 0 and means == {"mse": -1, "ssim": -1, "lpips": -1}
+        a, b = (out_dir(tmp_path / k, "std", "SYN", name)
+                for k in ("jax", "torch"))
+        assert sorted(p.name for p in a.iterdir()) == \
+            sorted(p.name for p in b.iterdir())
+        for metric in ("mse", "ssim", "lpips"):
+            assert (b / f"{metric}.txt").read_bytes() == b""
+        for f in ("timestamps.txt", "event_rate.txt"):
+            assert (a / f).read_bytes() == (b / f).read_bytes()
+        assert assert_done_equal(a, b)["metrics"] == []
