@@ -132,9 +132,31 @@ Phases, each printing one JSON line:
    serve shapes (T = 1, 4, 16 windows on the packer's buffers; HIGHEST on
    the f32 wire, DEFAULT on compact4) bit-equal to its int64 plain version
    and timed;
-10. the ``kernels`` line: per ported kernel its launches on its path (and
-   per method and path in the methods, eval-config, metrics and serve
-   phases), error and times beside its bound, and its serve shapes;
+10. train — training (``evreal_tpu_torch/train_cli.py``, ``train.py``) on
+   two synthetic 180 x 240 sequences with frames (48 windows of 30,000
+   events), both archs at their published widths (FireNet base 16, E2VID
+   base 32 with 3 ConvLSTM encoders) from random weights (seed 0):
+   12 steps of ``train_cli.main`` at ``--batch 4 --chunk-t 8`` on
+   ``cuda`` (every loss finite, ms per step as the median over the steps
+   after the first 2, exactly one HIGHEST voxelizer launch per sampled
+   chunk, the ``model.npz`` read back through ``load_method_params`` and
+   run once); the loss falling over 5 steps on one fixed batch at lr
+   1e-3; peak memory and ms per step with remat on and off; the shipped
+   step (channels-last, deterministic cuDNN) against cuDNN's default
+   algorithms and against NCHW tensors, in turns; one step profiled on
+   the device; one E2VID step on the card against the CPU from the same
+   weights and batch (batch 1, 2 windows; the loss within 1e-5 relative
+   of the CPU's, every gradient within 1e-4 x its max of the CPU's float64
+   gradient, or no further from it than the CPU's own f32 gradient, for
+   mse and mse+lpips with random LPIPS weights; the NCHW step's error
+   reported); 2 steps with a checkpoint each resumed to 4 against 4
+   uninterrupted steps (FireNet within 1e-5; E2VID reported); one step's
+   4 launches (T = 8, f32 wire) bit-equal to the int64 plain version, one
+   of them timed beside the plain version, ``index_add_`` and its bound;
+11. the ``kernels`` line: per ported kernel its launches on its path (and
+   per method and path in the methods, eval-config, metrics, serve and
+   train phases), error and times beside its bound, its serve shapes and
+   its training launch;
 
 then nvidia-smi's name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -2117,10 +2139,10 @@ def host_pack_ms(serve, windows, hw, cap, wire, reps=5):
     return float(np.median(ms))
 
 
-def profile_calls(torch, call, n):
+def profile_calls(torch, call, n, n_top=6):
     """``call(k)`` for k < n traced on the device only: busy ms (the union
-    of device events) against the host's wall ms, per call, and the top
-    kernels."""
+    of device events) against the host's wall ms, per call, and the
+    ``n_top`` kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2138,7 +2160,7 @@ def profile_calls(torch, call, n):
             else None,
             "device_events_per_call": sum(c for _, c in by_name.values()) / n,
             "voxelize_kernels": voxelize_kernels(by_name),
-            "top_kernels": top_kernels(by_name, 6)}
+            "top_kernels": top_kernels(by_name, n_top)}
 
 
 def phase_serve(torch, vc, vox, work, card, device="cuda"):
@@ -2434,6 +2456,379 @@ def phase_serve(torch, vc, vox, work, card, device="cuda"):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("firenet", "e2vid")
+TRAIN_SEQS = 2          # synthetic 180 x 240 sequences with frames
+TRAIN_WINDOWS = 48      # windows a sequence (30,000 events each)
+TRAIN_BATCH = 4
+TRAIN_CHUNK_T = 8
+TRAIN_STEPS = 12        # CLI steps an arch; ms/step over the steps after 2
+TRAIN_LEARN_STEPS = 5   # make_train_step on one fixed batch, lr 1e-3
+TRAIN_TIMED = 3         # steps timed per variant (remat, deterministic)
+TOL_TRAIN_LOSS = 1e-5   # card vs CPU loss, relative
+TOL_TRAIN_GRAD = 1e-4   # card vs CPU (float64) gradient, x max|g| of
+                        # the tensor, or the CPU's own f32 error if larger
+TOL_TRAIN_RESUME = 1e-5  # tests/test_train_cli.py:50-53
+TRAIN_VARIANTS = ("nhwc_deterministic", "nhwc_default_algorithms",
+                  "nchw_deterministic")
+
+
+def train_cli_run(torch, argv, sync):
+    """``train_cli.main(argv)`` with its stdout captured and the host clock
+    read after each step (the step's loss synchronized, as ``--log-every
+    1`` does): (stdout, the clock readings, the losses of the log)."""
+    import contextlib
+    import io
+
+    from evreal_tpu_torch import train, train_cli
+
+    stamps = []
+    real = train.make_train_step
+
+    def make(*a, **k):
+        step, opt = real(*a, **k)
+
+        def timed(batch):
+            loss = step(batch)
+            sync()
+            stamps.append(time.perf_counter())
+            return loss
+        return timed, opt
+
+    buf = io.StringIO()
+    train.make_train_step = make
+    try:
+        with contextlib.redirect_stdout(buf):
+            train_cli.main(argv)
+    finally:
+        train.make_train_step = real
+    out = buf.getvalue()
+    losses = [float(m.group(1)) for m in re.finditer(
+        r"^step \d+: loss (\S+)", out, re.M)]
+    return out, stamps, losses
+
+
+def train_setup(torch, arch, data, device, lr=1e-4, remat=True):
+    """The CLI's pieces built by hand: (model, step, sample) where
+    ``sample(seed, k, batch, chunk_t)`` is the batch the CLI samples at
+    step k, and ``sample.launched`` the buffers of its voxelizer
+    launches."""
+    import glob
+
+    from evreal_tpu_torch.data import Sequence
+    from evreal_tpu_torch.harness.runner import make_voxel_stage
+    from evreal_tpu_torch.ops.pad import CropParams
+    from evreal_tpu_torch.train import build_optimizer, make_train_step
+    from evreal_tpu_torch.train_cli import build, sample_batch
+    from evreal_tpu_torch.utils import upload
+
+    seqs = [Sequence(d, num_bins=ECD["b"],
+                     voxel_method={"method": "between_frames"})
+            for d in sorted(glob.glob(os.path.join(data, "*")))]
+    h, w = seqs[0].sensor_resolution
+    crop = CropParams(w, h, 3)
+    stage = make_voxel_stage(ECD["b"], (h, w), False)
+    launched = []
+
+    def voxelize(buffers):
+        bufs = upload(buffers, device)
+        launched.append(bufs)
+        return crop.pad(stage(bufs))
+
+    def sample(seed, k, batch=TRAIN_BATCH, chunk_t=TRAIN_CHUNK_T):
+        launched.clear()
+        return sample_batch(seqs, voxelize, np.random.default_rng((seed, k)),
+                            batch, chunk_t, ECD["b"], crop)
+
+    model, _ = build(arch, ECD["b"], device)
+    step, _ = make_train_step(model, build_optimizer(lr), remat=remat)
+    sample.launched = launched
+    return model, step, sample
+
+
+def loss_and_grads(torch, model, batch, loss, lpips_weights):
+    """The chunk's loss and every parameter's gradient (host float64
+    copies), forward and backward under the trainer's precision context,
+    in the model's dtype (LPIPS in float64 too, given float64 weights)."""
+    from evreal_tpu_torch import train
+
+    model.zero_grad(set_to_none=True)
+    dtype = next(model.parameters()).dtype
+    with train.training_precision():
+        val = train.sequence_loss(
+            model, batch["voxels"].to(dtype), batch["frames"].to(dtype),
+            loss=loss, lpips_weights=lpips_weights,
+            mask=batch["mask"].to(dtype))
+        val.backward()
+    return float(val.detach()), {
+        k: p.grad.detach().cpu().double().numpy()
+        for k, p in model.named_parameters()}
+
+
+def grad_err(got, want):
+    """The largest per-tensor error of ``got`` against ``want``, in units
+    of the tensor's max |want|: (error, tensor name)."""
+    return max((float(np.abs(got[k] - want[k]).max()
+                      / max(np.abs(want[k]).max(), 1e-30)), k) for k in want)
+
+
+@contextmanager
+def train_variant(torch, model, label):
+    """The training step as shipped ("nhwc_deterministic"), with cuDNN's
+    default algorithms ("nhwc_default_algorithms"), or with NCHW tensors
+    ("nchw_deterministic"), for ``model`` (on the card) in the block."""
+    from evreal_tpu_torch import train
+    from evreal_tpu_torch.utils import f32_parity
+
+    saved = (train.training_precision, train.channels_last)
+    if label == "nhwc_default_algorithms":
+        train.training_precision = f32_parity
+    if label == "nchw_deterministic":
+        train.channels_last = lambda tree: tree
+        model.to(memory_format=torch.contiguous_format)
+    try:
+        yield
+    finally:
+        train.training_precision, train.channels_last = saved
+        model.to(memory_format=torch.channels_last)
+
+
+def timed_steps(step, batch, n, sync):
+    """Host ms of ``n`` steps on ``batch``, each ending synchronized."""
+    return timed_calls(lambda b: (step(b), sync()), lambda k: batch, 0,
+                       n)[0]
+
+
+def phase_train(torch, vc, vox, work, card, device="cuda"):
+    """Training on the card (``evreal_tpu_torch/train_cli.py``,
+    ``train.py``) at the published widths on synthetic 180 x 240 sequences
+    with frames: both archs through ``train_cli.main`` (every loss finite,
+    ms per step, the launches counted, ``model.npz`` loaded back and run);
+    the loss falling over 5 steps on a fixed batch; peak memory and step
+    time with remat on and off; the shipped step against cuDNN's default
+    algorithms and NCHW tensors; one profiled step; a card step against
+    the CPU in f32 and float64 (loss and every gradient) for mse and
+    mse+lpips; resume against an uninterrupted run; the voxelizer at the
+    training launch (T = 8, f32 wire) bit-equal to its int64 plain version
+    and timed."""
+    from evreal_tpu_torch.harness.runner import load_method_params
+    from evreal_tpu_torch.models import build_from_meta
+    from evreal_tpu_torch.utils import f32_parity
+
+    def sync():
+        torch.cuda.synchronize()
+
+    hw = (ECD["h"], ECD["w"])
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "train")
+    data = os.path.join(root, "data")
+    for j in range(TRAIN_SEQS):
+        make_sequence(os.path.join(data, f"seq{j}"), *hw, TRAIN_WINDOWS,
+                      EVENTS_PER_WINDOW, seed=200 + j)
+    common = ["--data", data, "--batch", str(TRAIN_BATCH), "--chunk-t",
+              str(TRAIN_CHUNK_T), "--log-every", "1", "--device", device]
+    result = {"phase": "train", "card": card, "sensor": list(hw),
+              "batch": TRAIN_BATCH, "chunk_t": TRAIN_CHUNK_T,
+              "events_per_window": EVENTS_PER_WINDOW, "archs": {},
+              "launches": {}}
+    f32 = dict(EVREAL_DTYPE=None, EVREAL_WIRE=None,
+               EVREAL_VOXEL_PRECISION=None)
+    with env(**f32):
+        for arch in TRAIN_ARCHS:
+            res = {}
+            out_dir = os.path.join(root, arch)
+            vc.reset_launches()
+            _, stamps, losses = train_cli_run(torch, common + [
+                "--arch", arch, "--steps", str(TRAIN_STEPS), "--out",
+                out_dir], sync)
+            sync()
+            got = dict(vc.launches_by_precision)
+            want = dict(dict.fromkeys(vc.PRECISIONS, 0),
+                        highest=TRAIN_BATCH * TRAIN_STEPS)
+            check(got == want, f"train {arch}: voxelizer launches {got}, "
+                  f"want {want} (one per sampled chunk)")
+            result["launches"][f"train_{arch}"] = got
+            check(len(losses) == TRAIN_STEPS and np.isfinite(losses).all(),
+                  f"train {arch}: losses {losses}")
+            ms = np.diff(stamps)[1:] * 1e3  # the steps after the first 2
+            res.update(losses=losses, ms_per_step=float(np.median(ms)),
+                       ms_per_step_all=[float(x) for x in ms],
+                       steps_per_s=float(1e3 / np.median(ms)))
+            # the trained model.npz through the eval loader, one forward
+            sd, meta = load_method_params({"model_name": arch, "model_path":
+                                           os.path.join(out_dir,
+                                                        "model.npz")})
+            model = build_from_meta(meta, sd)
+            model.load_state_dict(sd, strict=True)
+            model = model.to(device).eval()
+            ph, pw = -(-hw[0] // 8) * 8, -(-hw[1] // 8) * 8
+            with torch.no_grad(), f32_parity():
+                out, _ = model(torch.randn(1, ECD["b"], ph, pw,
+                                           device=device),
+                               model.init_state(1, ph, pw, device=device))
+            check(bool(torch.isfinite(out["image"]).all()),
+                  f"train {arch}: the reloaded model.npz gives non-finite "
+                  f"frames")
+            res["reloaded_meta"] = meta
+
+            # learning: 5 steps on one fixed batch at lr 1e-3
+            _, step, sample = train_setup(torch, arch, data, device, lr=1e-3)
+            fixed = sample(0, 1)
+            learn = [float(step(fixed)) for _ in range(TRAIN_LEARN_STEPS)]
+            check(np.isfinite(learn).all() and learn[-1] < learn[0],
+                  f"train {arch}: the loss did not fall on a fixed batch: "
+                  f"{learn}")
+            res["fixed_batch_losses_lr1e-3"] = learn
+
+            # peak memory and step time, remat on and off
+            for remat in (True, False):
+                model, step, _ = train_setup(torch, arch, data, device,
+                                             remat=remat)
+                step(fixed)  # the optimizer state exists after one step
+                sync()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                ms = timed_steps(step, fixed, TRAIN_TIMED, sync)
+                res[f"remat_{'on' if remat else 'off'}"] = {
+                    "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                    "resident_mib": base / 2**20,
+                    "ms_per_step_fixed_batch": float(np.median(ms))}
+                del model, step
+
+            # the shipped step against cuDNN's default algorithms and
+            # against NCHW tensors, in turns
+            model, step, _ = train_setup(torch, arch, data, device)
+            step(fixed)
+            times = {label: [] for label in TRAIN_VARIANTS}
+            for _ in range(2):
+                for label in TRAIN_VARIANTS:
+                    with train_variant(torch, model, label):
+                        times[label] += timed_steps(step, fixed,
+                                                    TRAIN_TIMED, sync)
+            res["ms_per_step_by_variant"] = {
+                k: float(np.median(v)) for k, v in times.items()}
+
+            # one profiled step as the CLI makes it (sample, step, loss)
+            res["profile"] = profile_calls(
+                torch, lambda k: float(step(sample(0, 100 + k))), 1,
+                n_top=12)
+            del model, step
+            result["archs"][arch] = res
+            emit({"phase": "train_arch", "arch": arch, "card": card, **res,
+                  "launches": got})
+
+        # card vs CPU: one E2VID step at full width from the same params
+        # and batch (batch 1, chunk 2), TF32 off. The gradients are held
+        # to the CPU's in float64: the CPU's own f32 gradient of the pred
+        # bias (a sum over 44,160 pixels) is further from it than the
+        # card's (reported)
+        lw_path = os.path.join(root, "lpips_alex.npz")
+        write_lpips_npz(lw_path)
+        from evreal_tpu_torch.metrics.lpips import load_weights
+
+        lw = {k: torch.from_numpy(v) for k, v in load_weights(
+            lw_path).items()}
+        lw_card = {k: v.to(device) for k, v in lw.items()}
+        lw64 = {k: v.double() for k, v in lw.items()}
+        card_model, _, sample = train_setup(torch, "e2vid", data, device)
+        cpu_model = train_setup(torch, "e2vid", data, "cpu")[0]
+        cpu64 = train_setup(torch, "e2vid", data, "cpu")[0].double()
+        small = sample(0, 1, batch=1, chunk_t=2)
+        small_cpu = {k: v.cpu() for k, v in small.items()}
+        vs_cpu = {}
+        for loss in ("mse", "mse+lpips"):
+            c_loss, c_grads = loss_and_grads(torch, card_model, small, loss,
+                                             lw_card)
+            h_loss, h_grads = loss_and_grads(torch, cpu_model, small_cpu,
+                                             loss, lw)
+            d_loss, d_grads = loss_and_grads(torch, cpu64, small_cpu, loss,
+                                             lw64)
+            loss_err = abs(c_loss - h_loss) / abs(h_loss)
+            err, name = grad_err(c_grads, d_grads)
+            vs_cpu[loss] = {
+                "loss_card": c_loss, "loss_cpu": h_loss,
+                "loss_cpu_f64": d_loss, "loss_rel_err": loss_err,
+                "grad_err_vs_cpu_f64": [err, name],
+                "grad_err_vs_cpu_f32": list(grad_err(c_grads, h_grads)),
+                "cpu_f32_grad_err_vs_cpu_f64": list(grad_err(h_grads,
+                                                             d_grads))}
+            if loss == "mse":
+                with train_variant(torch, card_model, "nchw_deterministic"):
+                    nchw = loss_and_grads(torch, card_model, small, loss,
+                                          lw_card)[1]
+                vs_cpu[loss]["nchw_grad_err_vs_cpu_f64"] = list(
+                    grad_err(nchw, d_grads))
+        result["card_vs_cpu_e2vid"] = vs_cpu
+        emit({"phase": "train_card_vs_cpu", "card": card, **vs_cpu})
+        # the card within 1e-4 x max|g| of the float64 gradient, or no
+        # further from it than the CPU's own f32 gradient (LPIPS's f32
+        # backward is conditioned beyond 1e-4 on any device)
+        for loss, r in vs_cpu.items():
+            bound = max(TOL_TRAIN_GRAD, r["cpu_f32_grad_err_vs_cpu_f64"][0])
+            check(r["loss_rel_err"] <= TOL_TRAIN_LOSS
+                  and r["grad_err_vs_cpu_f64"][0] <= bound,
+                  f"train card vs CPU ({loss}): loss rel err "
+                  f"{r['loss_rel_err']} (<= {TOL_TRAIN_LOSS}), gradient err "
+                  f"{r['grad_err_vs_cpu_f64']} x max|g| against the CPU in "
+                  f"float64 (<= {bound})")
+
+        # resume: 2 steps with a checkpoint each, then --resume to 4,
+        # against 4 uninterrupted steps
+        resume = {}
+        for arch in TRAIN_ARCHS:
+            base = common + ["--arch", arch]
+            full, part = (os.path.join(root, f"{arch}_{n}")
+                          for n in ("full", "resumed"))
+            train_cli_run(torch, base + ["--steps", "4", "--out", full],
+                          sync)
+            train_cli_run(torch, base + ["--steps", "2", "--save-every",
+                                         "1", "--out", part], sync)
+            out, _, _ = train_cli_run(torch, base + [
+                "--steps", "4", "--save-every", "1", "--resume", "--out",
+                part], sync)
+            check("resumed from step 2" in out,
+                  f"train {arch} resume: {out[:200]!r}")
+            a = np.load(os.path.join(full, "model.npz"))
+            b = np.load(os.path.join(part, "model.npz"))
+            err = max(float(np.abs(a[k] - b[k]).max()) for k in a.files)
+            resume[arch] = {"max_abs_err_vs_uninterrupted": err,
+                            "bit_equal": err == 0.0}
+        # FireNet is all convolutions: deterministic cuDNN makes it exact;
+        # E2VID's bilinear upsample has an atomic backward (reported)
+        check(resume["firenet"]["max_abs_err_vs_uninterrupted"]
+              <= TOL_TRAIN_RESUME, f"train resume: {resume}")
+        result["resume"] = resume
+
+        # the voxelizer at the training launch: one step's launches on
+        # their own buffers (T = 8, f32 wire), counted, held bit-equal to
+        # the int64 plain version and timed
+        _, _, sample = train_setup(torch, "e2vid", data, device)
+        vc.reset_launches()
+        sample(0, 1)
+        sync()
+        got = dict(vc.launches_by_precision)
+        want = dict(dict.fromkeys(vc.PRECISIONS, 0), highest=TRAIN_BATCH)
+        check(got == want, f"train: one step's voxelizer launches {got}, "
+              f"want {want}")
+        errs = [hold_to_plain(torch, vox, bufs, ECD["b"], hw, "highest",
+                              f"train launch {j}")[0]
+                for j, bufs in enumerate(sample.launched)]
+        check(all(b["count"].shape == (TRAIN_CHUNK_T,)
+                  for b in sample.launched),
+              "train: a launch is not T = chunk_t windows")
+        result["train_launch"] = dict(
+            time_variant(torch, vox, sample.launched[0], "highest", hw,
+                         ECD["b"]),
+            max_abs_err=max(errs), launches_per_step=got["highest"],
+            wire="f32")
+    result["phase_s"] = time.perf_counter() - t_phase
+    emit({k: v for k, v in result.items() if k != "archs"})
+    return result
+
+
 def main():
     import torch
 
@@ -2466,6 +2861,7 @@ def main():
             configs = phase_eval_configs(torch, vc, vox, work, smi)
             metrics = phase_metrics(torch, vc, vox, work, smi)
             served = phase_serve(torch, vc, vox, work, smi)
+            trained = phase_train(torch, vc, vox, work, smi)
         finally:
             os.chdir(cwd)
     by_method = methods["launches"]
@@ -2487,6 +2883,10 @@ def main():
         if not label.endswith("cpu"):
             by_method["E2VID"][f"metrics_{label}"] = run["launches"]
     color_launch = color["kernel_at_color_launch"]
+    for arch in TRAIN_ARCHS:
+        by_method[f"train_{arch}"] = {
+            f"cli_{TRAIN_STEPS}_steps": trained["launches"][f"train_{arch}"]}
+    train_launch = trained["train_launch"]
 
     def launch_errs(prec):
         return [v["max_abs_err"] for v in list(at_launch.values())
@@ -2527,7 +2927,8 @@ def main():
              + [lock["kernel_lockstep_max_abs_err"]["highest_f32"],
                 color_launch["max_abs_err"]]
              + launch_errs("highest")
-             + [v["max_abs_err"] for v in serve_shapes("highest").values()]),
+             + [v["max_abs_err"] for v in serve_shapes("highest").values()]
+             + [train_launch["max_abs_err"]]),
          "ms": f32_times["ms"], "plain_ms": f32_times["plain_ms"],
          "bound_ms": f32_times["bound_ms"], "bound_by": f32_times["bound_by"],
          "library_ms": f32_times["library_ms"],
@@ -2545,6 +2946,9 @@ def main():
              "windows", "sensor", "capacity", "max_abs_err")},
          "serve_launches": serve_launches("highest"),
          "serve_shapes": serve_shapes("highest"),
+         "train_launch": {k: train_launch[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "windows", "wire", "max_abs_err", "launches_per_step")},
          "card": smi},
         {"name": "voxelize_windows_bf16_factors", "route": "cuda",
          "source": source,
@@ -2566,7 +2970,8 @@ def main():
          "bit_equal_int64_plain": True,
          "launches_by_method": {m: {p: n["default"] for p, n in v.items()
                                     if n["default"]}
-                                for m, v in by_method.items()},
+                                for m, v in by_method.items()
+                                if any(n["default"] for n in v.values())},
          "methods_launches": launch_times("default"),
          "serve_launches": serve_launches("default"),
          "serve_shapes": serve_shapes("default"),

@@ -42,3 +42,11 @@ def main(argv=None):
         for line in timings.summary():
             print(line)
     return results
+
+
+def train_main(argv=None):
+    """``python -m evreal_tpu_torch.train_cli`` as a function (the JAX
+    package's ``evreal_tpu.cli.train_main``)."""
+    from evreal_tpu_torch.train_cli import main as train
+
+    train(argv)

@@ -11,9 +11,11 @@ HyperE2VID's ``bases`` buffer, which keeps its layout; everything else
 
 ``from_jax_tree`` undoes that into a ``state_dict`` for the port's
 modules, whose parameter paths are the same torch module paths the trees
-already use. The file I/O here is the port's own numpy-only copy of the
-JAX package's ``save_params`` / ``load_params`` / ``nest``, so both
-packages read the same files.
+already use; ``to_jax_tree`` is its exact inverse (a model the port
+trained is written in the JAX layout, so either package loads it). The
+file I/O here is the port's own numpy-only copy of the JAX package's
+``save_params`` / ``load_params`` / ``nest``, so both packages read the
+same files.
 """
 
 import json
@@ -73,6 +75,29 @@ def from_jax_tree(tree):
         else tree
     return {k: torch.from_numpy(np.ascontiguousarray(to_torch_layout(k, v)))
             for k, v in flat.items()}
+
+
+def to_jax_layout(key, a):
+    """One torch-layout array -> the JAX layout: the inverse of
+    ``to_torch_layout`` (the JAX package's ``convert_tensor``)."""
+    a = np.asarray(a)
+    if a.ndim == 4 and (key.endswith("weight")
+                        or key.endswith("compositional_coefficients")):
+        if "transposed_conv2d" in key:
+            # ConvTranspose2d (I, O, kh, kw) -> HWIO with spatial flip
+            return a.transpose(2, 3, 0, 1)[::-1, ::-1]
+        return a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    if a.ndim == 2 and not key.endswith(_KEEP_2D):
+        return a.T  # linear (O, I) -> (I, O)
+    return a
+
+
+def to_jax_tree(state_dict):
+    """A module's ``state_dict`` -> nested JAX-layout tree of contiguous
+    numpy arrays (the tree ``models/init.py`` makes and converted
+    checkpoints hold)."""
+    return nest({k: np.ascontiguousarray(to_jax_layout(
+        k, v.detach().cpu().numpy())) for k, v in state_dict.items()})
 
 
 def _sidecar_path(path):

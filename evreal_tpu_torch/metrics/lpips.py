@@ -63,12 +63,16 @@ def _alex_features(w, x):
 
 def lpips(w, imgs, refs):
     """LPIPS distances (N,) of (N, H, W) frames against references; both
-    go through AlexNet as one batch of 2N."""
+    go through AlexNet as one batch of 2N, in f32 (float64 frames, with
+    float64 weights, stay float64: a reference for the f32 gradient)."""
     n = imgs.shape[0]
-    x = torch.cat([imgs, refs]).to(torch.float32)[:, None]
+    x = torch.cat([imgs, refs])
+    x = x.to(torch.promote_types(x.dtype, torch.float32))[:, None]
     x = x.expand(-1, 3, -1, -1) * 2.0 - 1.0
-    shift = torch.tensor(_SHIFT, device=x.device).view(1, 3, 1, 1)
-    scale = torch.tensor(_SCALE, device=x.device).view(1, 3, 1, 1)
+    shift = torch.tensor(_SHIFT, device=x.device, dtype=x.dtype).view(
+        1, 3, 1, 1)
+    scale = torch.tensor(_SCALE, device=x.device, dtype=x.dtype).view(
+        1, 3, 1, 1)
     total = 0.0
     for i, tap in enumerate(_alex_features(w, (x - shift) / scale)):
         tap = tap / (torch.sqrt((tap * tap).sum(dim=1, keepdim=True))

@@ -20,7 +20,7 @@ for name in names:
 import chip_smoke  # noqa: F401
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "evreal_tpu", "cv2",
-                                    "pyiqa"))
+                                    "pyiqa", "optax", "orbax"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -48,4 +48,6 @@ def test_port_imports_no_jax_and_no_evreal_tpu():
             "evreal_tpu_torch.metrics.brisque",
             "evreal_tpu_torch.metrics.maniqa",
             "evreal_tpu_torch.metrics.pyiqa_bridge",
-            "evreal_tpu_torch.serve"} <= set(report["modules"])
+            "evreal_tpu_torch.serve",
+            "evreal_tpu_torch.train",
+            "evreal_tpu_torch.train_cli"} <= set(report["modules"])
