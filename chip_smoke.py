@@ -153,10 +153,26 @@ Phases, each printing one JSON line:
    uninterrupted steps (FireNet within 1e-5; E2VID reported); one step's
    4 launches (T = 8, f32 wire) bit-equal to the int64 plain version, one
    of them timed beside the plain version, ``index_add_`` and its bound;
-11. the ``kernels`` line: per ported kernel its launches on its path (and
-   per method and path in the methods, eval-config, metrics, serve and
-   train phases), error and times beside its bound, its serve shapes and
-   its training launch;
+11. mesh — the device mesh (``evreal_tpu_torch/parallel/mesh.py``) over
+   every visible card, or over ``[cuda:0, cuda:0]`` with one card (the
+   line names the cards and the shards): phase 5's 16 lanes x 96 windows
+   through ``evaluate`` with E2VID at its published width, f32 and bf16
+   on compact4, sharded against unsharded (f32 rows within 1e-4, bf16
+   within mean 0.02 / max 0.2, frames/s of each; one voxelizer launch per
+   shard per chunk, counted); each shard's chunk-0 launch on its device
+   bit-equal to the int64 plain version, shard 0's timed; a 16-lane bf16
+   compact4 serve group sharded against unsharded (frames within the bf16
+   bounds, ms per push_group, frames/s, one launch per shard per push);
+   one training step at dp = 2 against the meshless step for both archs
+   at ``--batch 4 --chunk-t 8`` (loss within 1e-5 relative, parameters
+   within 3e-4, the first replica's reduced gradient within 1e-4 x
+   max|g| of the meshless one; ms per step of each); ``cost_analysis`` FLOPs of the
+   E2VID f32 lockstep chunk and its MFU against the card's dense bf16
+   peak from the chunk's device busy time;
+12. the ``kernels`` line: per ported kernel its launches on its path (and
+   per method and path in the methods, eval-config, metrics, serve, train
+   and mesh phases), error and times beside its bound, its serve shapes,
+   its training launch and a mesh shard's launch;
 
 then nvidia-smi's name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -2829,6 +2845,293 @@ def phase_train(torch, vc, vox, work, card, device="cuda"):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the device mesh (data parallel over the cards)
+# ---------------------------------------------------------------------------
+
+MESH_SERVE_WARMUP = 4   # push_group calls of the 16-lane group, untimed
+MESH_SERVE_TIMED = 16   # and timed (host clock, frames on the host)
+MESH_TRAIN_TIMED = 3    # steps timed after the checked one
+MESH_TRAIN_DP = 2       # the training mesh's dp
+TOL_MESH_PARAM = 3e-4   # tests/test_train_parallel.py:69
+
+
+def mesh_devices(torch, device):
+    """Every visible card when there are more than one, else the one card
+    named twice (the split, per-shard dispatch and gather still run)."""
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device(device, 0) if device == "cuda"
+            else torch.device(device)] * 2
+
+
+def chunk_busy_ms(torch, runner, host, n):
+    """Device busy ms and wall ms of one steady ``run`` of ``runner`` on
+    the host buffers ``host`` (profiled after one warm run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runner.run(runner.init_state(), runner.upload(host), n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.run(runner.init_state(), runner.upload(host), n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_time(torch, prof)[0], wall_ms
+
+
+def phase_mesh(torch, vc, vox, work, card, device="cuda"):
+    """The device mesh (``evreal_tpu_torch/parallel/mesh.py``) over every
+    visible card, or over ``[cuda:0, cuda:0]`` on a one-card machine (then
+    the split's overhead is measured, not scaling): E2VID at its published
+    width on phase 5's 16 lanes x 96 windows, f32 and bf16 on compact4,
+    sharded (``harness/batched.py:_EVAL_MESH``) against unsharded through
+    ``evaluate`` (f32 rows within 1e-4, bf16 within mean 0.02 / max 0.2,
+    frames/s of each, one voxelizer launch per shard per chunk); each
+    shard's launch of chunk 0 bit-equal to the int64 plain version; a
+    16-lane bf16 compact4 serve group sharded against unsharded; one
+    training step at dp = 2 against the meshless one for both archs (loss
+    1e-5 relative, parameters 3e-4, the reduced gradient 1e-4 x max|g|);
+    ``cost_analysis`` FLOPs of the E2VID
+    f32 chunk and its MFU from the chunk's device busy time."""
+    from evreal_tpu_torch import serve, train
+    from evreal_tpu_torch.data import Sequence
+    from evreal_tpu_torch.data.packing import bucket_capacity
+    from evreal_tpu_torch.harness import batched
+    from evreal_tpu_torch.harness.runner import (MethodBundle, evaluate,
+                                                 get_method_config)
+    from evreal_tpu_torch.harness.timers import TimingLog
+    from evreal_tpu_torch.parallel.mesh import make_mesh, split_lanes
+    from evreal_tpu_torch.train_cli import build
+    from evreal_tpu_torch.utils import upload
+    from evreal_tpu_torch.utils.mfu import bf16_peak_tflops, mfu
+
+    def sync():
+        torch.cuda.synchronize()
+
+    c = ECD
+    hw = (c["h"], c["w"])
+    t_phase = time.perf_counter()
+    devices = mesh_devices(torch, device)
+    dp = len(devices)
+    mesh = make_mesh(dp, axes=("dp",), devices=devices)
+    os.chdir(work)
+    names = [f"seq{j:02d}" for j in range(N_LANES)]
+    root = os.path.join(work, "data", "LOCK")
+    n_chunks = -(-N_WINDOWS // CHUNK_T)
+    result = {"phase": "mesh", "card": card,
+              "cards": torch.cuda.device_count() if device == "cuda" else 0,
+              "cards_smi": subprocess.run(
+                  ["nvidia-smi", "--query-gpu=name,power.limit",
+                   "--format=csv,noheader"], capture_output=True, text=True,
+                  check=True).stdout.strip().splitlines()
+              if device == "cuda" else [],
+              "shards": [str(d) for d in devices], "dp": dp,
+              "lanes": N_LANES, "windows_per_lane": N_WINDOWS,
+              "launches": {}}
+    f32 = dict(EVREAL_DTYPE=None, EVREAL_WIRE=None)
+    bf16 = dict(EVREAL_DTYPE="bfloat16", EVREAL_WIRE="compact4")
+
+    # lockstep through evaluate, unsharded then sharded, in each precision
+    runs, trees = {}, {}
+    try:
+        for label, switches, prec in (("f32", f32, "highest"),
+                                      ("bf16_compact4", bf16, "default")):
+            for sharded in (False, True):
+                key = f"{label}_{'sharded' if sharded else 'unsharded'}"
+                batched._EVAL_MESH = mesh if sharded else None
+                timings = TimingLog()
+                vc.reset_launches()
+                t1 = time.perf_counter()
+                with env(**switches):
+                    evaluate(["E2VID"], ["std"], ["LOCK"], ["mse", "ssim"],
+                             device=device, timings=timings)
+                sync()
+                wall_s = time.perf_counter() - t1
+                launches = dict(vc.launches_by_precision)
+                want = dict(dict.fromkeys(vc.PRECISIONS, 0),
+                            **{prec: n_chunks * (dp if sharded else 1)})
+                check(launches == want, f"mesh {key}: voxelizer launches "
+                      f"{launches}, want {want} (one per shard per chunk)")
+                out = os.path.join("outputs", "std", "LOCK")
+                trees[key] = {n: check_tree(
+                    os.path.join(out, n, "E2VID"), N_WINDOWS, hw,
+                    decode_frames=False,
+                    may_skip={0} if prec == "default" else ())[0]
+                    for n in names}
+                os.rename(out, f"{out}_mesh_{key}")
+                ms = timings.ms_per_frame("E2VID")
+                runs[key] = {"launches": launches, "wall_s": wall_s,
+                             "ms_per_frame_steady": ms,
+                             "frames_per_s_steady": 1e3 / ms if ms else None}
+                result["launches"][f"mesh_lockstep_{key}"] = launches
+    finally:
+        batched._EVAL_MESH = None
+    rows = {}
+    for label in ("f32", "bf16_compact4"):
+        a, b = trees[f"{label}_unsharded"], trees[f"{label}_sharded"]
+        check(all(a[n][m].keys() == b[n][m].keys() for n in names
+                  for m in ("mse", "ssim")),
+              f"mesh {label}: sharded and unsharded runs scored different "
+              f"windows")
+        d = np.array([abs(a[n][m][i] - b[n][m][i]) for n in names
+                      for m in ("mse", "ssim") for i in a[n][m]])
+        rows[label] = {"max_abs_err": float(d.max()),
+                       "mean_abs_err": float(d.mean())}
+    check(rows["f32"]["max_abs_err"] <= TOL_LOCKSTEP,
+          f"mesh f32 rows sharded vs unsharded: {rows['f32']} > "
+          f"{TOL_LOCKSTEP}")
+    check(rows["bf16_compact4"]["mean_abs_err"] < BF16_MEAN
+          and rows["bf16_compact4"]["max_abs_err"] < BF16_MAX,
+          f"mesh bf16 rows sharded vs unsharded: {rows['bf16_compact4']}")
+    result.update(lockstep=runs, rows_sharded_vs_unsharded=rows)
+
+    # each shard's launch of chunk 0, on its device, bit-equal to the int64
+    # plain version; shard 0's timed
+    seqs = [Sequence(os.path.join(root, n), num_bins=c["b"]) for n in names]
+    cap = bucket_capacity(EVENTS_PER_WINDOW)
+    shard_launch = {}
+    for wire, prec in (("f32", "highest"), ("compact4", "default")):
+        errs, flats = [], []
+        for s, (block, d) in enumerate(zip(
+                split_lanes(pack_lanes(seqs, CHUNK_T, cap, wire), dp),
+                devices)):
+            flat = {k: v.reshape((-1,) + tuple(v.shape[2:]))
+                    for k, v in upload(block, d).items()}
+            errs.append(hold_to_plain(torch, vox, flat, c["b"], hw, prec,
+                                      f"mesh shard {s} {d} ({wire})")[0])
+            flats.append(flat)
+        shard_launch[prec] = dict(
+            time_variant(torch, vox, flats[0], prec, hw, c["b"]),
+            max_abs_err=max(errs), wire=wire, shards=dp)
+    result["shard_launch"] = shard_launch
+
+    # a 16-lane bf16 compact4 serve group, unsharded then sharded
+    wins = serve_windows(SERVE_POOL, hw)
+    served = {}
+    try:
+        with env(**bf16):
+            for sharded in (False, True):
+                key = "sharded" if sharded else "unsharded"
+                batched._EVAL_MESH = mesh if sharded else None
+                engine = serve.ReconEngine.from_method("E2VID",
+                                                       device=device)
+                gid = engine.open_group(N_LANES, *hw)
+                check(isinstance(engine._groups[gid].runner,
+                                 batched.ShardedRunner) == sharded,
+                      f"mesh serve: the {key} group's runner")
+                frames = []
+
+                def push(ws):
+                    frames.append(engine.push_group(gid, ws))
+
+                vc.reset_launches()
+                ms, _ = timed_calls(push, lambda k: [
+                    wins[(k * N_LANES + j) % len(wins)]
+                    for j in range(N_LANES)], MESH_SERVE_WARMUP,
+                    MESH_SERVE_TIMED)
+                sync()
+                launches = dict(vc.launches_by_precision)
+                n_push = MESH_SERVE_WARMUP + MESH_SERVE_TIMED
+                want = dict(dict.fromkeys(vc.PRECISIONS, 0),
+                            default=n_push * (dp if sharded else 1))
+                check(launches == want, f"mesh serve {key}: voxelizer "
+                      f"launches {launches}, want {want}")
+                result["launches"][f"mesh_serve_bf16_{N_LANES}_lanes_{key}"] \
+                    = launches
+                served[key] = {"frames": np.stack(frames),
+                               "ms_per_push_group": latency(ms),
+                               "frames_per_s": N_LANES * 1e3
+                               / float(np.median(ms))}
+    finally:
+        batched._EVAL_MESH = None
+    a, b = served["unsharded"].pop("frames"), served["sharded"].pop("frames")
+    check(np.array_equal(np.isnan(a), np.isnan(b)),
+          "mesh serve: NaN frames differ sharded vs unsharded")
+    d = np.abs(a - b)[np.isfinite(a)]
+    serve_err = {"mean_abs_err": float(d.mean()),
+                 "max_abs_err": float(d.max())}
+    check(serve_err["mean_abs_err"] < BF16_MEAN
+          and serve_err["max_abs_err"] < BF16_MAX,
+          f"mesh serve frames sharded vs unsharded: {serve_err}")
+    result["serve_group"] = dict(served, frames_sharded_vs_unsharded=serve_err)
+
+    # one training step at dp = 2 against the meshless step
+    data = os.path.join(work, "train", "data")
+    train_mesh = make_mesh(MESH_TRAIN_DP, axes=("dp",),
+                           devices=devices[:MESH_TRAIN_DP])
+    trained = {}
+    with env(**f32, EVREAL_VOXEL_PRECISION=None):
+        for arch in TRAIN_ARCHS:
+            model0, step0, sample = train_setup(torch, arch, data, device)
+            batch = sample(0, 1)
+            loss0 = float(step0(batch))
+            model1, _ = build(arch, c["b"], device)
+            step1, _ = train.make_train_step(model1, train.build_optimizer(),
+                                             mesh=train_mesh)
+            vc.reset_launches()
+            batch = sample(0, 1)
+            loss1 = float(step1(batch))
+            sync()
+            launches = dict(vc.launches_by_precision)
+            # the first replica's reduced gradient against the meshless
+            # one (Adam is invariant to a uniform scale of the gradient, so
+            # the parameters alone cannot tell a sum from a mean)
+            grad_err = max(
+                float((p1.grad - p0.grad).abs().max()
+                      / p0.grad.abs().max().clamp(min=1e-30))
+                for p0, p1 in zip(model0.parameters(), model1.parameters()))
+            result["launches"][f"mesh_train_{arch}_dp{MESH_TRAIN_DP}"] = \
+                launches
+            param_err = max(float((a - b).abs().max()) for a, b in zip(
+                model0.state_dict().values(), model1.state_dict().values()))
+            rel = abs(loss1 - loss0) / abs(loss0)
+            check(rel <= TOL_TRAIN_LOSS and param_err <= TOL_MESH_PARAM
+                  and grad_err <= TOL_TRAIN_GRAD,
+                  f"mesh train {arch}: loss {loss1} vs meshless {loss0} "
+                  f"(rel {rel}), parameters {param_err}, gradients "
+                  f"{grad_err} x max|g|")
+            trained[arch] = {
+                "loss": loss1, "loss_meshless": loss0, "loss_rel_err": rel,
+                "param_max_abs_err": param_err,
+                "grad_max_err_x_max_g": grad_err, "launches": launches,
+                "ms_per_step_meshless": float(np.median(timed_steps(
+                    step0, batch, MESH_TRAIN_TIMED, sync))),
+                "ms_per_step_dp": float(np.median(timed_steps(
+                    step1, batch, MESH_TRAIN_TIMED, sync)))}
+            del model0, model1, step0, step1
+    result["train"] = trained
+
+    # FLOPs of the E2VID f32 lockstep chunk and its MFU
+    with env(**f32):
+        cfg = get_method_config("E2VID")
+        runner = MethodBundle("E2VID", cfg, device).batched_runner_for(
+            hw, cfg, c["b"], N_LANES)
+        host = pack_lanes(seqs, CHUNK_T, cap, "f32")
+        vc.reset_launches()
+        t1 = time.perf_counter()
+        flops, nbytes = runner.cost_analysis(runner.init_state(), host)
+        count_s = time.perf_counter() - t1
+        check(vc.launch_count() == 0 and nbytes is None and flops > 0,
+              f"mesh cost_analysis: flops {flops}, bytes {nbytes}, "
+              f"launches {vc.launch_count()}")
+        busy_ms, wall_ms = chunk_busy_ms(torch, runner, host, CHUNK_T)
+    achieved, frac = (mfu(flops, busy_ms / 1e3, device) if busy_ms
+                      else (None, None))
+    result["cost"] = {
+        "path": f"E2VID f32 lockstep chunk, {N_LANES} x {CHUNK_T} windows",
+        "flops": flops, "flops_per_window": flops / (N_LANES * CHUNK_T),
+        "count_s": count_s, "device_busy_ms": busy_ms, "wall_ms": wall_ms,
+        "tflops_per_s_busy": achieved, "mfu_busy": frac,
+        "tflops_per_s_wall": flops / (wall_ms / 1e3) / 1e12,
+        "peak_tflops_bf16": bf16_peak_tflops(device)}
+    result["phase_s"] = time.perf_counter() - t_phase
+    emit(result)
+    return result
+
+
 def main():
     import torch
 
@@ -2851,6 +3154,11 @@ def main():
     emit({"phase": "build", "seconds": info["seconds"],
           "cached": info["cached"], "ptxas": info["log"].splitlines()})
 
+    # the phases before the mesh phase run on one card whatever the host
+    # holds: the eval mesh is off until phase_mesh sets it
+    from evreal_tpu_torch.harness import batched
+    batched._EVAL_MESH = None
+
     kern = phase_kernel(torch, vc, vox)
     with tempfile.TemporaryDirectory() as work:
         cwd = os.getcwd()
@@ -2862,6 +3170,7 @@ def main():
             metrics = phase_metrics(torch, vc, vox, work, smi)
             served = phase_serve(torch, vc, vox, work, smi)
             trained = phase_train(torch, vc, vox, work, smi)
+            meshed = phase_mesh(torch, vc, vox, work, smi)
         finally:
             os.chdir(cwd)
     by_method = methods["launches"]
@@ -2887,6 +3196,15 @@ def main():
         by_method[f"train_{arch}"] = {
             f"cli_{TRAIN_STEPS}_steps": trained["launches"][f"train_{arch}"]}
     train_launch = trained["train_launch"]
+    for path, n in meshed["launches"].items():
+        arch = re.match(r"mesh_train_(\w+?)_dp", path)
+        by_method[f"train_{arch.group(1)}" if arch else "E2VID"][path] = n
+    shard_launch = meshed["shard_launch"]
+
+    def mesh_launch(prec):
+        return {k: shard_launch[prec][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "windows",
+            "wire", "max_abs_err", "shards")}
 
     def launch_errs(prec):
         return [v["max_abs_err"] for v in list(at_launch.values())
@@ -2928,7 +3246,8 @@ def main():
                 color_launch["max_abs_err"]]
              + launch_errs("highest")
              + [v["max_abs_err"] for v in serve_shapes("highest").values()]
-             + [train_launch["max_abs_err"]]),
+             + [train_launch["max_abs_err"],
+                shard_launch["highest"]["max_abs_err"]]),
          "ms": f32_times["ms"], "plain_ms": f32_times["plain_ms"],
          "bound_ms": f32_times["bound_ms"], "bound_by": f32_times["bound_by"],
          "library_ms": f32_times["library_ms"],
@@ -2949,6 +3268,7 @@ def main():
          "train_launch": {k: train_launch[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "windows", "wire", "max_abs_err", "launches_per_step")},
+         "mesh_shard_launch": mesh_launch("highest"),
          "card": smi},
         {"name": "voxelize_windows_bf16_factors", "route": "cuda",
          "source": source,
@@ -2961,7 +3281,8 @@ def main():
                                 "default_compact4"]]
                             + launch_errs("default")
                             + [v["max_abs_err"] for v in
-                               serve_shapes("default").values()]),
+                               serve_shapes("default").values()]
+                            + [shard_launch["default"]["max_abs_err"]]),
          "ms": bf16_times["ms"], "plain_ms": bf16_times["plain_ms"],
          "bound_ms": bf16_times["bound_ms"],
          "bound_by": bf16_times["bound_by"],
@@ -2975,6 +3296,7 @@ def main():
          "methods_launches": launch_times("default"),
          "serve_launches": serve_launches("default"),
          "serve_shapes": serve_shapes("default"),
+         "mesh_shard_launch": mesh_launch("default"),
          "card": smi}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

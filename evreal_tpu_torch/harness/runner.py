@@ -46,9 +46,15 @@ the voxelizer and raises), ``EVREAL_BATCHED`` (lockstep groups, on unless
 last two are parsed at import, as there.
 
 Every method config runs (``models/``, weights from a converted ``.npz``
-or a reference ``.pth``). The
-TPU-only levers (staging, mesh, S2D, UPFUSE, scan unroll) have no
-counterpart: a group runs on the one device it is given.
+or a reference ``.pth``). A lockstep group shards its lanes over the eval
+mesh (``harness/batched.py:eval_mesh_for``, ``EVREAL_MESH``) when it
+runs on ``cuda`` and more than one card is visible. The TPU-only levers (staging, S2D, UPFUSE, scan
+unroll) have no counterpart.
+
+A runner never moves the model it is given: it runs the model itself when
+that already lies on its device in its dtype, else a copy
+(``parallel.mesh.replica_on``); ``MethodBundle`` makes one such replica
+per (device, dtype) and hands it to every runner there.
 """
 
 import contextlib
@@ -100,6 +106,7 @@ from evreal_tpu_torch.ops.normalize import (
 )
 from evreal_tpu_torch.ops.pad import CropParams
 from evreal_tpu_torch.ops.voxelize import voxelize_windows
+from evreal_tpu_torch.parallel.mesh import canonical_device, replica_on
 from evreal_tpu_torch.utils import (
     U8_LUT,
     f32_parity,
@@ -127,15 +134,11 @@ def compute_dtype():
 
 
 def cast_model(model, dtype):
-    """The model in the serving dtype: itself in f32 or when its floating
-    parameters and buffers already are ``dtype`` (so runners given one
-    cast copy share it), else a copy rounded to ``dtype`` (round to
-    nearest even, as the JAX package's ``cast_params``)."""
-    if dtype == torch.float32 or all(
-            t.dtype == dtype for t in (*model.parameters(), *model.buffers())
-            if t.is_floating_point()):
-        return model
-    return copy.deepcopy(model).to(dtype)
+    """The model in the serving dtype on its own device: itself when its
+    floating parameters and buffers already are ``dtype`` (so runners
+    given one cast copy share it), else a copy rounded to ``dtype`` (round
+    to nearest even, as the JAX package's ``cast_params``)."""
+    return replica_on(model, next(model.parameters()).device, dtype)
 
 
 def precision_ctx(dtype):
@@ -200,7 +203,7 @@ class MethodRunner:
                  num_bins, device, chunk_t=None):
         self.device = torch.device(device)
         self.dtype = compute_dtype()
-        self.model = cast_model(model, self.dtype).to(self.device).eval()
+        self.model = replica_on(model, self.device, self.dtype).eval()
         self.post_norm = post_norm
         self.h, self.w = height, width
         self.num_bins = num_bins
@@ -257,6 +260,30 @@ class MethodRunner:
         vox = self.voxelize(bufs)
         state, imgs = self.reconstruct(state, vox[:valid_t])
         return (state,) + self.post(imgs)
+
+    def cost_analysis(self, state, buffers):
+        """(FLOPs, None) of one ``run`` call at the shapes of ``state`` and
+        ``buffers`` (host arrays or tensors; ``count`` gives the lanes and
+        windows): the model over every window and the post-norm, counted
+        on ``meta`` copies (``utils.mfu.count_flops``), so the runner's
+        state, weights and launch counters are untouched. The voxelizer is
+        left out: a zero grid of its output's shape takes its place (the
+        CUDA kernels are not ops the counter knows; the JAX count includes
+        its jnp voxelizer, a small share). Bytes are None: torch has no
+        counterpart of XLA's bytes-accessed estimate."""
+        from evreal_tpu_torch.utils.mfu import count_flops
+
+        lanes_t = tuple(buffers["count"].shape)
+        vox = torch.empty((self.lanes, int(np.prod(lanes_t)) // self.lanes,
+                           self.num_bins, self.h, self.w), dtype=self.dtype,
+                          device="meta")
+
+        def chunk(model, state, vox):
+            probe = copy.copy(self)
+            probe.model = model
+            probe.post(probe.rollout(state, vox)[1])
+
+        return count_flops(chunk, self.model, state, vox), None
 
     @torch.no_grad()
     def metric_scores(self, specs, clipped, refs=None, on_error=None):
@@ -376,32 +403,66 @@ class MethodBundle:
         self.model = build_from_meta(meta, state_dict)
         self.model.load_state_dict(state_dict, strict=True)
         self.model.to(self.device).eval()
+        self._replicas = {}
         self._runners = {}
 
-    def _runner(self, key, cls, sensor_resolution, method_config, num_bins,
-                **kwargs):
-        if key not in self._runners:
-            h, w = sensor_resolution
-            self._runners[key] = cls(
-                self.model,
-                event_norm=method_config.get("event_tensor_normalization",
-                                             False),
-                post_norm=method_config.get("post_process_norm", "none"),
-                height=h, width=w, num_bins=num_bins, device=self.device,
-                **kwargs)
-        return self._runners[key]
+    def model_for(self, device, dtype):
+        """The model on ``device`` in ``dtype``: one replica per (device,
+        dtype), shared by every runner there; the bundle's own model where
+        it already is that."""
+        key = (canonical_device(device), dtype)
+        if key not in self._replicas:
+            self._replicas[key] = replica_on(self.model, device, dtype)
+        return self._replicas[key]
+
+    def _make(self, cls, sensor_resolution, method_config, num_bins, device,
+              **kwargs):
+        h, w = sensor_resolution
+        return cls(self.model_for(device, compute_dtype()),
+                   event_norm=method_config.get("event_tensor_normalization",
+                                                False),
+                   post_norm=method_config.get("post_process_norm", "none"),
+                   height=h, width=w, num_bins=num_bins, device=device,
+                   **kwargs)
 
     def runner_for(self, sensor_resolution, method_config, num_bins):
-        return self._runner(tuple(sensor_resolution), MethodRunner,
-                            sensor_resolution, method_config, num_bins)
+        key = tuple(sensor_resolution)
+        if key not in self._runners:
+            self._runners[key] = self._make(MethodRunner, sensor_resolution,
+                                            method_config, num_bins,
+                                            self.device)
+        return self._runners[key]
 
     def batched_runner_for(self, sensor_resolution, method_config, num_bins,
-                           n):
-        from evreal_tpu_torch.harness.batched import BatchedRunner
+                           n, mesh=None):
+        """The lockstep runner of ``n`` lanes: a ``BatchedRunner`` on the
+        bundle's device, or with a ``mesh`` a ``ShardedRunner`` with one
+        ``BatchedRunner`` of ``n / dp`` lanes per dp entry, on that entry's
+        device (the JAX package's runner with ``mesh=get_eval_mesh()``)."""
+        from evreal_tpu_torch.harness.batched import (
+            BatchedRunner,
+            ShardedRunner,
+        )
+        from evreal_tpu_torch.parallel.mesh import dp_devices
 
-        return self._runner(("batched", n) + tuple(sensor_resolution),
-                            BatchedRunner, sensor_resolution, method_config,
-                            num_bins, n=n)
+        key = (("batched", n) + tuple(sensor_resolution)
+               + ((mesh.key(),) if mesh is not None else ()))
+        if key not in self._runners:
+            if mesh is None:
+                runner = self._make(BatchedRunner, sensor_resolution,
+                                    method_config, num_bins, self.device,
+                                    n=n)
+            else:
+                devices = dp_devices(mesh)
+                if n % len(devices):
+                    raise ValueError(f"{n} lanes do not split over the "
+                                     f"mesh's dp = {len(devices)}")
+                runner = ShardedRunner([
+                    self._make(BatchedRunner, sensor_resolution,
+                               method_config, num_bins, d,
+                               n=n // len(devices)) for d in devices])
+            self._runners[key] = runner
+        return self._runners[key]
 
     def color_runner_for(self, sensor_resolution, method_config, num_bins):
         """The f32 ``ColorRunner`` of the full sensor resolution (the
@@ -617,22 +678,30 @@ def record_window(tracker, seq, i, meta, image, scores, processed=None):
 
 
 def to_host(tensors):
-    """Start device->host copies of a dict of tensors; returns the host
-    dict and an event to wait on (None on the CPU)."""
-    if not tensors or next(iter(tensors.values())).device.type != "cuda":
-        return tensors, None
-    host = {}
+    """Start device->host copies of a dict of tensors (on one device or on
+    several, as a mesh's shards give them); returns the host dict and the
+    events to wait on: one per CUDA device, recorded on that device's
+    current stream, where its copies run (none on the CPU)."""
+    host, devices = {}, []
     for k, v in tensors.items():
+        if v.device.type != "cuda":
+            host[k] = v
+            continue
         host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
         host[k].copy_(v, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
+        if v.device not in devices:
+            devices.append(v.device)
+    events = []
+    for device in devices:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        events.append(event)
+    return host, events
 
 
-def from_host(host, event):
+def from_host(host, events):
     """Wait for ``to_host``'s copies; the dict as numpy arrays."""
-    if event is not None:
+    for event in events:
         event.synchronize()
     return {k: v.numpy() for k, v in host.items()}
 
@@ -673,7 +742,6 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
     else:
         runner = bundle.runner_for(seq.sensor_resolution, method_config,
                                    seq.num_bins)
-    device = runner.device
     tracker = make_tracker(eval_config, dataset_name, sequence, method_name,
                            specs)
     use = [] if color else usable_metrics(
@@ -743,7 +811,8 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
 
     timings = timings if timings is not None else TimingLog()
     n_chunks = -(-len(proc) // chunk_t)
-    with DeviceTimer(timings, method_name, len(proc), device) as timer:
+    with DeviceTimer(timings, method_name, len(proc),
+                     runner.device) as timer:
         run_chunks(n_chunks, dispatch, drain, timer)
     finish_tracker(tracker, eval_config, contain.dead)
     return tracker.get_num_quan_evaluations(), tracker.get_mean_scores()

@@ -2,9 +2,10 @@
 
 A timer spans a sequence's chunk loop; the caller restarts it with
 ``exclude_warmup`` once the first chunk (which bears the kernel build,
-cuDNN's algorithm search and allocator growth) has finished, and the
-device is fenced with ``torch.cuda.synchronize()`` at both boundaries, so
-the sample is steady-state ms per frame. Samples go to the
+cuDNN's algorithm search and allocator growth) has finished, and every
+device the run uses (each card of a mesh) is fenced with
+``torch.cuda.synchronize()`` at both boundaries, so the sample is
+steady-state ms per frame of the slowest card. Samples go to the
 ``TimingLog`` the caller passes; ``summary()`` is frame-count weighted
 across sequences.
 """
@@ -42,26 +43,35 @@ class TimingLog:
 
 
 class DeviceTimer:
-    def __init__(self, log, name, frames, device):
+    """Wall clock over a run on ``devices`` (one device, or a list such as
+    a mesh's shards), each fenced at the clock's start and stop."""
+
+    def __init__(self, log, name, frames, devices):
         self.log = log
         self.name = name
         self.frames = max(frames, 1)
-        self.device = device
+        if isinstance(devices, (str, torch.device)):
+            devices = [devices]
+        self.devices = list(dict.fromkeys(torch.device(d) for d in devices))
+
+    def fence(self):
+        for device in self.devices:
+            fence(device)
 
     def __enter__(self):
-        fence(self.device)
+        self.fence()
         self.start = time.perf_counter()
         return self
 
     def exclude_warmup(self, frames_done):
         """Restart the clock after the first chunk; ``frames_done`` frames
         drop out of the sample."""
-        fence(self.device)
+        self.fence()
         self.start = time.perf_counter()
         self.frames -= frames_done
 
     def __exit__(self, *exc):
-        fence(self.device)
+        self.fence()
         elapsed_ms = (time.perf_counter() - self.start) * 1000.0
         if self.frames > 0 and exc[0] is None:
             self.log.samples[self.name].append((elapsed_ms, self.frames))

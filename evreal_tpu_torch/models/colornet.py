@@ -18,6 +18,7 @@ import torch
 
 from evreal_tpu_torch.ops.normalize import post_process_normalization_frames
 from evreal_tpu_torch.ops.pad import CropParams
+from evreal_tpu_torch.parallel.mesh import replica_on
 from evreal_tpu_torch.utils import U8_LUT, f32_parity, upload
 from evreal_tpu_torch.utils.color import merge_channels_into_color_image
 
@@ -49,7 +50,7 @@ class ColorRunner:
     def __init__(self, model, *, height, width, voxel_stage, post_norm,
                  device, chunk_t=None):
         self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
+        self.model = replica_on(model, self.device).eval()
         self.voxel_stage = voxel_stage
         self.post_norm = post_norm
         self.u8_lut = torch.from_numpy(U8_LUT).to(self.device)

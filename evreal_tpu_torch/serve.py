@@ -8,8 +8,11 @@ into reconstructed frames for any number of concurrent camera streams:
   asks for another; it raises without a card). Per sensor resolution it
   builds a ``MethodRunner`` with ``chunk_t=1`` (one window per dispatch:
   the latency configuration), and per ``("group", n, h, w)`` a lockstep
-  ``BatchedRunner``. All runners share the engine's model, one cast copy
-  per serving dtype (``EVREAL_DTYPE``).
+  ``BatchedRunner``, or, when the engine runs on ``cuda``, more than one
+  card is visible and ``n`` divides over them, a ``ShardedRunner`` with a
+  block of the lanes on each card of the eval mesh
+  (``harness/batched.py:eval_mesh_for``; ``EVREAL_MESH=0`` turns it off). All runners on a device share one
+  replica of the engine's model per serving dtype (``EVREAL_DTYPE``).
 * Each stream owns only its recurrent state, which stays on the device
   between windows: per push the host uploads one packed window and
   downloads one frame (``u8=True``: quantized on the device, 4x fewer
@@ -49,14 +52,24 @@ from evreal_tpu_torch.data.packing import (
     wire_dtypes,
     wire_format,
 )
-from evreal_tpu_torch.harness.batched import BatchedRunner
+from evreal_tpu_torch.harness.batched import (
+    BatchedRunner,
+    ShardedRunner,
+    eval_mesh_for,
+    part_states,
+    run_parts,
+)
 from evreal_tpu_torch.harness.config import get_method_config
 from evreal_tpu_torch.harness.runner import (
     MethodBundle,
     MethodRunner,
-    cast_model,
     compute_dtype,
     quantize_u8,
+)
+from evreal_tpu_torch.parallel.mesh import (
+    canonical_device,
+    dp_devices,
+    replica_on,
 )
 from evreal_tpu_torch.utils import bounded_fetch, resolve_device
 
@@ -111,7 +124,7 @@ class _Group:
 
     def __init__(self, runner, n, float_coords, dtypes):
         self.runner = runner
-        self.state = runner.init_state()
+        self.state = part_states(runner)  # one per shard
         self.n = n
         self.frames = 0
         self.float_coords = float_coords
@@ -123,11 +136,14 @@ class _Group:
 
 
 class ReconEngine:
-    """Resident single-method serving engine on one device; thread-safe.
+    """Resident single-method serving engine on one device (its groups
+    on every card of the eval mesh where that applies); thread-safe.
 
-    ``model`` is the port's module with its weights loaded; it is moved
-    to the engine's device. ``device``: ``cuda`` unless the caller asks
-    for another (``utils.resolve_device``: raises without a card). The
+    ``model`` is the port's module with its weights loaded; it is never
+    moved: each device runs it where it already lies there in the serving
+    dtype, else a replica made once (``parallel.mesh.replica_on``).
+    ``device``: ``cuda`` unless the caller asks for another
+    (``utils.resolve_device``: raises without a card). The
     engine dispatches one window per ``push`` (a group: one window per
     lane per ``push_group``), so its runners run at ``chunk_t=1``."""
 
@@ -138,7 +154,7 @@ class ReconEngine:
         self.event_norm = event_norm
         self.post_norm = post_norm
         self.num_bins = num_bins if num_bins is not None else model.num_bins
-        self._models = {}    # serving dtype -> the model in it, on device
+        self._models = {}    # (device, serving dtype) -> model replica
         self._runners = {}   # (h, w) -> MethodRunner; group keys -> Batched
         self._streams = {}   # sid -> _Stream
         self._groups = {}    # gid -> _Group
@@ -162,17 +178,18 @@ class ReconEngine:
                    post_norm=cfg.get("post_process_norm", "none"),
                    device=device)
 
-    def _runner_args(self, height, width):
-        """A runner's arguments: the engine's model in the serving dtype
-        read now (one cast copy per dtype, shared by every runner)."""
-        dtype = compute_dtype()
-        model = self._models.get(dtype)
+    def _runner_args(self, height, width, device=None):
+        """A runner's arguments on ``device`` (the engine's by default):
+        the engine's model in the serving dtype read now (one replica per
+        device and dtype, shared by every runner there)."""
+        device = self.device if device is None else device
+        key = (canonical_device(device), compute_dtype())
+        model = self._models.get(key)
         if model is None:
-            model = cast_model(self.model, dtype).to(self.device).eval()
-            self._models[dtype] = model
+            model = self._models[key] = replica_on(self.model, *key).eval()
         return dict(event_norm=self.event_norm, post_norm=self.post_norm,
                     height=int(height), width=int(width),
-                    num_bins=self.num_bins, device=self.device,
+                    num_bins=self.num_bins, device=device,
                     chunk_t=1), model
 
     def _runner(self, h, w):
@@ -241,16 +258,29 @@ class ReconEngine:
     # an empty window (a zero voxel grid, the offline empty-window rule).
 
     def open_group(self, n, height, width, float_coords=False):
-        """Register ``n`` lockstep streams; returns the group's id. The
-        lanes run on the engine's one device: sharding them over several
-        devices (the JAX package's eval mesh) is not ported."""
+        """Register ``n`` lockstep streams; returns the group's id. An
+        engine on ``cuda`` on a host with more than one card shards the
+        lanes over the eval mesh (``dp``), one contiguous block a card,
+        when ``n`` divides over it; otherwise, on the CPU, or under
+        ``EVREAL_MESH=0``, they run on the engine's device
+        (``evreal_tpu/serve.py:286-303``)."""
         with self._lock, torch.no_grad():
-            key = ("group", int(n), int(height), int(width))
+            mesh = eval_mesh_for(self.device)
+            devices = dp_devices(mesh) if mesh is not None else []
+            if int(n) % max(len(devices), 1):
+                devices = []  # lanes not dp-divisible: run unsharded
+            key = ("group", int(n), int(height), int(width),
+                   tuple(str(d) for d in devices))
             runner = self._runners.get(key)
             if runner is None:
-                kwargs, model = self._runner_args(height, width)
-                runner = self._runners[key] = BatchedRunner(model, n=int(n),
-                                                            **kwargs)
+                def batched(lanes, device=None):
+                    kwargs, model = self._runner_args(height, width, device)
+                    return BatchedRunner(model, n=lanes, **kwargs)
+
+                runner = self._runners[key] = (
+                    ShardedRunner([batched(int(n) // len(devices), d)
+                                   for d in devices])
+                    if devices else batched(int(n)))
             dtypes = wire_dtypes(wire_format(), not float_coords,
                                  (int(height), int(width)))
             gid = self._next_sid
@@ -296,20 +326,20 @@ class ReconEngine:
                              out={k: v[j] for k, v in bufs.items()})
             served = sum(1 for w in windows if w is not None)
             with self._lock, torch.no_grad():
-                state, _, clipped = g.runner.run(g.state,
-                                                 g.runner.upload(bufs), 1)
-                g.state = state
+                outs = [c[:, 0] for c in run_parts(g.runner, g.state, bufs,
+                                                   1)]
                 g.frames += served
                 self._total_frames += served
-                out = clipped[:, 0]
                 if u8:
-                    out = quantize_u8(out)
-            return bounded_fetch(out)
+                    outs = [quantize_u8(o) for o in outs]
+            # each shard's lanes from its card, in lane order
+            frames = [bounded_fetch(o) for o in outs]
+            return frames[0] if len(frames) == 1 else np.concatenate(frames)
 
     def reset_group(self, gid):
         g = self._group(gid)
         with g.lock, self._lock, torch.no_grad():
-            g.state = g.runner.init_state()
+            g.state = part_states(g.runner)
             g.frames = 0
 
     def close_group(self, gid):

@@ -27,6 +27,16 @@ f32 rounding (``tests/test_torch_cuda_train.py``) and whose FFT tiles
 slow FireNet's small convolutions (``chip_smoke.py``'s train phase times
 both layouts). The CPU keeps NCHW.
 
+With a device mesh (``make_train_step(..., mesh=)``) the step is data
+parallel over the mesh's dp entries, in one process: each entry holds a
+replica of the model (its own copy, even where the mesh repeats a
+device) and a contiguous block of the batch's samples; each replica's
+loss is its masked sum over the whole batch's denominator, so the
+replicas' losses sum to the meshless loss; one backward call runs them
+all; the gradients are summed onto the first replica (NCCL's reduce
+across distinct cards, a plain sum where a device repeats), clipped and
+applied there once, and the updated parameters copied to the others.
+
 The voxelizer that feeds a batch runs outside the step (``train_cli``);
 no kernel of this module has a backward: the gradient flows through
 the convolutions (cuDNN) and the loss only, as in the JAX package, where
@@ -40,6 +50,12 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from evreal_tpu_torch.parallel.mesh import (
+    canonical_device,
+    copy_module,
+    dp_devices,
+    split_lanes,
+)
 from evreal_tpu_torch.utils import f32_parity
 
 LOSS_TERMS = ("mse", "lpips", "bce")
@@ -74,11 +90,14 @@ def channels_last(tree):
 
 
 def sequence_loss(model, voxels, frames, remat=True, loss="mse",
-                  lpips_weights=None, lpips_scale=1.0, mask=None):
+                  lpips_weights=None, lpips_scale=1.0, mask=None, denom=None):
     """The chunk's loss: voxels (N, T, B, H, W), frames (N, T, H, W),
     ``mask`` an optional (N, T) window validity (1 = a window with a
     reference frame; a zero-padded tail window of a short sequence must
-    not be scored against a black frame).
+    not be scored against a black frame). ``denom``: the loss's
+    denominator, by default this batch's count of valid windows (at least
+    1); a shard of a larger batch passes the whole batch's, so that the
+    shards' losses sum to the batch's.
 
     ``loss`` is '+'-joined terms of {mse, lpips, bce}. LPIPS runs
     ``metrics/lpips.py`` (plain torch convolutions, differentiable) on the
@@ -118,7 +137,8 @@ def sequence_loss(model, voxels, frames, remat=True, loss="mse",
     total = 0.0
     m = torch.ones((n, t), dtype=voxels.dtype, device=voxels.device) \
         if mask is None else mask.to(voxels.dtype)
-    denom = torch.clamp(m.sum(), min=1.0)
+    if denom is None:
+        denom = torch.clamp(m.sum(), min=1.0)
     if "mse" in parts:
         per_frame = ((imgs - frames) ** 2).mean(dim=(2, 3))  # (N, T)
         total = total + (per_frame * m).sum() / denom
@@ -248,29 +268,102 @@ def build_optimizer(lr=1e-4, schedule="constant", steps=None, warmup=0,
     return Adam(sched, weight_decay=weight_decay, clip_grad=clip_grad)
 
 
-def make_train_step(model, optimizer=None, remat=True, loss="mse",
-                    lpips_weights=None, lpips_scale=1.0):
+def make_train_step(model, optimizer=None, mesh=None, remat=True,
+                    loss="mse", lpips_weights=None, lpips_scale=1.0):
     """``(step, optimizer)``: ``step(batch)`` runs the forward and the
     backward pass (both under ``training_precision``) and one update of
     ``model``'s parameters, and returns the loss as a 0-d tensor on the
-    batch's device (reading it waits for the device). A model on a CUDA
-    device is turned channels-last here, once (module docstring)."""
+    model's device (reading it waits for the device). A model on a CUDA
+    device is turned channels-last here, once (module docstring).
+
+    ``mesh``: data parallel over its dp entries (module docstring); the
+    model must lie on the first, where it is the first replica, the one
+    the optimizer updates and checkpoints read. The batch's N must divide
+    over dp. ``step.replicas`` lists the replicas."""
     if optimizer is None:
         optimizer = build_optimizer(1e-4)
-    if any(p.is_cuda for p in model.parameters()):
-        model.to(memory_format=torch.channels_last)
-    params = [p for p in model.parameters() if p.requires_grad]
+    home = canonical_device(next(model.parameters()).device)
+    devices = [home]
+    if mesh is not None:
+        devices = [canonical_device(d) for d in dp_devices(mesh)]
+        if devices[0] != home:
+            raise ValueError(f"the model lies on {home}, the mesh's first "
+                             f"device is {devices[0]}")
+    replicas = [model] + [copy_module(model, d) for d in devices[1:]]
+    for r in replicas:
+        if any(p.is_cuda for p in r.parameters()):
+            r.to(memory_format=torch.channels_last)
+    params = [[p for p in r.parameters() if p.requires_grad]
+              for r in replicas]
+    lpips_on = {}
+    if lpips_weights is not None:
+        lpips_on = {d: {k: v.to(d) for k, v in lpips_weights.items()}
+                    for d in dict.fromkeys(devices)}
 
     def step(batch):
-        for p in params:
-            p.grad = None
+        for ps in params:
+            for p in ps:
+                p.grad = None
+        shards = [batch] if len(replicas) == 1 else \
+            shard_batch(batch, devices)
         with training_precision():
-            loss_val = sequence_loss(
-                model, batch["voxels"], batch["frames"], remat, loss=loss,
-                lpips_weights=lpips_weights, lpips_scale=lpips_scale,
-                mask=batch.get("mask"))
-            loss_val.backward()
-        optimizer.step(params)
-        return loss_val.detach()
+            losses = [sequence_loss(
+                r, b["voxels"], b["frames"], remat, loss=loss,
+                lpips_weights=lpips_on.get(d), lpips_scale=lpips_scale,
+                mask=b.get("mask"), denom=b.get("denom"))
+                for r, b, d in zip(replicas, shards, devices)]
+            # one call: autograd's per-device threads run the replicas'
+            # backward passes together
+            torch.autograd.backward(losses)
+        if len(replicas) > 1:
+            reduce_grads(params, devices)
+        optimizer.step(params[0])
+        if len(replicas) > 1:
+            with torch.no_grad():
+                for ps in params[1:]:
+                    for p, p0 in zip(ps, params[0]):
+                        p.copy_(p0)
+        total = losses[0].detach()
+        for other in losses[1:]:
+            total = total + other.detach().to(devices[0])
+        return total
 
+    step.replicas = replicas
     return step, optimizer
+
+
+def shard_batch(batch, devices):
+    """A batch's dp blocks of samples, each on its device, with the whole
+    batch's loss denominator (its valid windows, at least 1)."""
+    n, t = batch["voxels"].shape[:2]
+    mask = batch.get("mask")
+    denom = (torch.clamp(mask.to(batch["voxels"].dtype).sum(), min=1.0)
+             if mask is not None else
+             torch.tensor(float(n * t), dtype=batch["voxels"].dtype))
+    parts = split_lanes({k: v for k, v in batch.items() if v is not None},
+                        len(devices))
+    return [{**{k: v.to(d, non_blocking=True) for k, v in part.items()},
+             "denom": denom.to(d)} for part, d in zip(parts, devices)]
+
+
+@torch.no_grad()
+def reduce_grads(params, devices):
+    """Each parameter's gradients of every replica (``params[r]``, the
+    replicas' parameter lists) summed into the first replica's ``.grad``:
+    NCCL's reduce (``torch.cuda.comm``) when the replicas lie on distinct
+    cards, else (a device that repeats, the CPU) a plain sum in replica
+    order on the first device."""
+    grads = [[p.grad for p in ps] for ps in params]
+    distinct = len(set(devices)) == len(devices)
+    if distinct and all(d.type == "cuda" for d in devices):
+        sums = torch.cuda.comm.reduce_add_coalesced(
+            grads, destination=devices[0].index)
+    else:
+        sums = []
+        for per_replica in zip(*grads):
+            acc = per_replica[0]
+            for g in per_replica[1:]:
+                acc = acc + g.to(devices[0])
+            sums.append(acc)
+    for p, g in zip(params[0], sums):
+        p.grad = g

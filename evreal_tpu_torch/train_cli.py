@@ -8,8 +8,14 @@ Truncated BPTT over fixed-length chunks of windows; a batch is ``--batch``
     python -m evreal_tpu_torch.train_cli --data data/SYN --arch firenet \\
         --steps 200 --chunk-t 8 --batch 4 --out runs/firenet [--device cpu]
 
-It runs on the CUDA card unless ``--device`` names another device. The
-trained weights are written as ``<out>/model.npz`` with its ``.npz.json``
+It runs on the CUDA card unless ``--device`` names another device. With
+``--mesh`` on a host with more than one visible card the step is data
+parallel (``train.make_train_step(mesh=)``): dp is the largest divisor of
+``--batch`` not above the card count, printed at the start; the batches
+are the ones a meshless run samples, and checkpoints and ``model.npz``
+come from the first replica, so either kind of run resumes the other's.
+With one card, or on the CPU, ``--mesh`` changes nothing. The trained
+weights are written as ``<out>/model.npz`` with its ``.npz.json``
 sidecar in the JAX package's converted-checkpoint format, so a method
 config's ``model_path`` of either package loads them. Job checkpoints
 (``--save-every``, ``--resume``) are the port's own: ``torch.save`` files
@@ -125,6 +131,20 @@ def restore_checkpoint(ckpt_dir, model, optimizer, device):
     return int(state["step"])
 
 
+def train_mesh(device, batch):
+    """The ``("dp",)`` mesh of ``--mesh``: dp is the largest divisor of
+    ``batch`` not above the visible card count; ``device`` first, then the
+    other cards in order."""
+    from evreal_tpu_torch.parallel.mesh import canonical_device, make_mesh
+
+    count = torch.cuda.device_count()
+    dp = max(d for d in range(1, min(count, batch) + 1) if batch % d == 0)
+    first = canonical_device(device)
+    devices = [first] + [torch.device("cuda", i) for i in range(count)
+                         if i != first.index]
+    return make_mesh(dp, axes=("dp",), devices=devices)
+
+
 def main(argv=None):
     from evreal_tpu_torch.convert.params import flatten, save_params, \
         to_jax_tree
@@ -166,8 +186,9 @@ def main(argv=None):
                          "early. Evaluate a checkpoint trained with this "
                          "flag with event_tensor_normalization: true")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard over all local devices; one device only "
-                         "here (multi-GPU training is not in the port yet)")
+                    help="data parallel over the visible cards (dp: the "
+                         "largest divisor of --batch not above their "
+                         "count); a no-op with one card or on the CPU")
     ap.add_argument("--out", default="runs/train")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
@@ -181,12 +202,11 @@ def main(argv=None):
                          "plain CPU path)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    mesh = None
     if args.mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise SystemExit(
-            "--mesh: multi-GPU training (the batch sharded over the visible "
-            f"cards, {torch.cuda.device_count()} here) is not in the port "
-            "yet; make one card visible (CUDA_VISIBLE_DEVICES) to train on "
-            "it")
+        mesh = train_mesh(device, args.batch)
+        print(f"mesh: dp = {mesh.shape['dp']} over "
+              f"{', '.join(str(d) for d in mesh.devices.flat)}", flush=True)
 
     seq_dirs = sorted(d for d in glob.glob(os.path.join(args.data, "*"))
                       if os.path.isdir(d))
@@ -216,18 +236,18 @@ def main(argv=None):
         lr=args.lr, schedule=args.lr_schedule, steps=args.steps,
         warmup=args.warmup, weight_decay=args.weight_decay,
         clip_grad=args.clip_grad)
-    step_fn, optimizer = make_train_step(
-        model, optimizer, loss=args.loss, lpips_weights=lpips_weights,
-        lpips_scale=args.lpips_scale)
-
     os.makedirs(args.out, exist_ok=True)
     ckpt_dir = os.path.join(args.out, "ckpt")
     start_step = 0
     if args.resume:
+        # before the step is built: its replicas copy the restored weights
         restored = restore_checkpoint(ckpt_dir, model, optimizer, device)
         if restored is not None:
             start_step = restored
             print(f"resumed from step {restored}", flush=True)
+    step_fn, optimizer = make_train_step(
+        model, optimizer, mesh=mesh, loss=args.loss,
+        lpips_weights=lpips_weights, lpips_scale=args.lpips_scale)
 
     log_t, log_step = None, start_step
     for step in range(start_step + 1, args.steps + 1):

@@ -50,4 +50,6 @@ def test_port_imports_no_jax_and_no_evreal_tpu():
             "evreal_tpu_torch.metrics.pyiqa_bridge",
             "evreal_tpu_torch.serve",
             "evreal_tpu_torch.train",
-            "evreal_tpu_torch.train_cli"} <= set(report["modules"])
+            "evreal_tpu_torch.train_cli",
+            "evreal_tpu_torch.parallel.mesh",
+            "evreal_tpu_torch.utils.mfu"} <= set(report["modules"])

@@ -679,7 +679,7 @@ def test_bf16_engine_within_bounds_of_f32(nets, monkeypatch):
                for t in range(4)])
         models = {id(r.model) for r in engine._runners.values()}
         assert len(models) == 1
-    bf16 = engine._models[torch.bfloat16]
+    bf16 = engine._models[torch.device("cpu"), torch.bfloat16]
     assert next(iter(models)) == id(bf16) and bf16 is not tm
     assert next(bf16.parameters()).dtype == torch.bfloat16
     assert next(tm.parameters()).dtype == torch.float32

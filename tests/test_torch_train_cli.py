@@ -207,14 +207,26 @@ def test_needs_a_card_without_device(data, tmp_path):
                         str(tmp_path)])
 
 
-def test_mesh_on_several_cards_raises(data, tmp_path, monkeypatch):
-    """--mesh with more than one visible card raises (multi-GPU training
-    is not ported): it never trains on one card silently."""
+def test_mesh_on_several_cards_raises(data, tmp_path, monkeypatch, capsys):
+    """--mesh with more than one visible card no longer exits: it builds
+    the dp mesh over the cards (dp the largest divisor of --batch) and
+    prints it before the model is built; it never trains on one card
+    silently. (The test fakes two cards and stops the run at ``build``.)"""
+    class Stop(Exception):
+        pass
+
+    def build(*args):
+        raise Stop()
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit, match="multi-GPU"):
-        train_cli.main(["--data", data, "--steps", "1", "--mesh", "--out",
-                        str(tmp_path)])
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(train_cli, "build", build)
+    with pytest.raises(Stop):
+        train_cli.main(["--data", data, "--steps", "1", "--mesh",
+                        "--batch", "4", "--out", str(tmp_path)])
+    assert capsys.readouterr().out.startswith(
+        "mesh: dp = 2 over cuda:0, cuda:1\n")
 
 
 def test_mesh_on_one_device_is_a_no_op(data, tmp_path, capsys):
