@@ -9,8 +9,8 @@ Phases, each printing one JSON line:
    limit;
 2. build — builds the CUDA voxelizer from ``evreal_tpu_torch/kernels/csrc``
    and prints nvcc's ``-Xptxas -v`` report;
-3. kernel — runs the voxelizer (count, scatter and accumulate kernels) at
-   the single-sequence path's shape (T = 32 windows, E = 32768 slots, 5
+3. kernel — runs the voxelizer (its tiled path: count, scatter and
+   accumulate kernels) at the single-sequence path's shape (T = 32 windows, E = 32768 slots, 5
    bins, 180 x 240) in both precisions (HIGHEST: f32 weights; DEFAULT: bf16
    factors) on every wire it takes, compact4 decoded in the kernels, and on
    grids that cross many tiles (625 x 970 on the f32 wire, 8 windows of
@@ -21,8 +21,12 @@ Phases, each printing one JSON line:
    asked): bit-equal to its int64 fixed-point sums, and within 2e-5 of its
    float64 sums. Checks determinism: two launches on the same inputs, and
    one launch over all windows against two over the halves, are
-   bit-identical. Times the kernels, the plain version and ``index_add_``
-   (CUDA events, median of 25 after warm-up, L2 flushed);
+   bit-identical. Holds the direct path (deposit and finish kernels) to
+   the tiled launch bit for bit: every window of every case alone (T = 1,
+   routed there; zero capacity returns zeros without a launch) and all of
+   a case's windows in one direct call, its scratch zero after each.
+   Times the kernels, the plain version and ``index_add_`` (CUDA events,
+   median of 25 after warm-up, L2 flushed);
 4. main path (single sequence) — writes a synthetic 180 x 240 sequence (96
    windows of ~30k events, a moving blob) and random-init full-width E2VID
    weights (seed 0), runs the port's ``evaluate`` on ``cuda`` with
@@ -127,11 +131,19 @@ Phases, each printing one JSON line:
    offline runner (1e-5), 4 against the CPU engine (raw frames, 1e-4), a
    4-lane group with an idle lane against solo streams (5e-4), 4 threads
    on 4 streams and 2 groups against the same pushes made serially
-   (1e-4; bit-equality reported); one voxelizer launch per push and per
-   push_group (counts set to 0 before each path); the voxelizer at the
-   serve shapes (T = 1, 4, 16 windows on the packer's buffers; HIGHEST on
-   the f32 wire, DEFAULT on compact4) bit-equal to its int64 plain version
-   and timed;
+   (1e-4; bit-equality reported); an E2VID stream in bf16 on compact4;
+   one voxelizer launch per push, on the direct path, and per push_group,
+   on the tiled path (counts set to 0 before each path); the voxelizer at
+   the serve shapes and the training launch's (T = 1, 4, 8, 16 windows on
+   the packer's buffers; HIGHEST on the f32 wire, DEFAULT on compact4):
+   the routed call and both paths bit-equal to its int64 plain version;
+   then, in a fresh process of this script (``--serve-voxelizer-times``:
+   this one has run the profiler, which slows every later enqueue), the
+   routed call timed beside its plain version, ``index_add_`` and its
+   bound, both paths timed in turns (CUDA events) with their host enqueue
+   (host clock over 200 calls before the synchronize) and device time
+   (profiler, last); the launch floor: 1 and 2 empty kernels through the
+   direct path's binding, timed the same way;
 10. train — training (``evreal_tpu_torch/train_cli.py``, ``train.py``) on
    two synthetic 180 x 240 sequences with frames (48 windows of 30,000
    events), both archs at their published widths (FireNet base 16, E2VID
@@ -172,13 +184,20 @@ Phases, each printing one JSON line:
 12. the ``kernels`` line: per ported kernel its launches on its path (and
    per method and path in the methods, eval-config, metrics, serve, train
    and mesh phases), error and times beside its bound, its serve shapes,
-   its training launch and a mesh shard's launch;
+   its training launch and a mesh shard's launch; K1 (the direct path)
+   with its stream launches, its T = 1 times on both wires beside the
+   tiled path's, the host/device split, the launch floor and the
+   crossover at T = 4, 8, 16;
 
 then nvidia-smi's name and power-limit line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
-that line; without a CUDA device the script fails at once.
+that line; without a CUDA device the script fails at once. Kernel times
+are medians of CUDA-event timings whose events exist before the first
+run (an event is created at its first record, at a cost to the host that
+would otherwise fall inside the timed interval).
 """
 
+import functools
 import json
 import os
 import re
@@ -206,6 +225,7 @@ CHUNK_T = 32
 N_LANES = 16
 MODEL_WINDOWS = 128  # the methods phase: one sequence, and 4 in lockstep
 MODEL_LANES = 4
+SCRIPT = os.path.abspath(__file__)
 
 
 def emit(obj):
@@ -247,19 +267,40 @@ def env(**values):
 
 def time_ms(torch, fn, flush, warmup=5, iters=25):
     """Median ms of ``fn`` by CUDA events, L2 flushed before each run."""
+    return time_turns(torch, {"fn": fn}, flush, warmup, iters)["fn"]
+
+
+def time_turns(torch, fns, flush, warmup=5, iters=25):
+    """Median ms of each of ``fns`` ({name: fn}) by CUDA events, L2
+    flushed before each run, the functions taken in turns (each round in
+    the other order: A B, B A, ...). The events are created (recorded
+    once) before the first run: a CUDA event is created at its first
+    record, which costs the host tens of microseconds and would otherwise
+    fall inside the timed interval of a call whose enqueue outlasts the
+    flush."""
+    names = list(fns)
     for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        for name in names:
+            fns[name]()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(iters * len(names))]
+    for start, end in events:
         start.record()
-        fn()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    torch.cuda.synchronize()
+    times = {name: [] for name in names}
+    pairs = iter(events)
+    for i in range(iters):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            start, end = next(pairs)
+            flush.zero_()
+            start.record()
+            fns[name]()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: float(np.median(t)) for name, t in times.items()}
 
 
 def time_variant(torch, vox, bufs, precision, hw, num_bins):
@@ -296,6 +337,61 @@ def time_variant(torch, vox, bufs, precision, hw, num_bins):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": in_bytes + out_bytes, "valid_events": n_valid,
             "windows": t_n}
+
+
+def path_fn(vc, bufs, num_bins, hw, precision, path):
+    """A call of the voxelizer's private ``path`` ("direct" or "tiled"; the
+    public entries pick one by ``vc.route``) on a wire buffer dict, its
+    arguments bound once, so that a timed call adds nothing of its own."""
+    from evreal_tpu_torch.data.packing import compact4_layout
+
+    fn = vc._voxelize_direct if path == "direct" else vc._voxelize_tiled
+    if "ev" in bufs:
+        return functools.partial(fn, (bufs["ev"],), bufs["count"], num_bins,
+                                 hw, precision, compact4_layout(hw))
+    return functools.partial(fn, tuple(bufs[k] for k in ("xs", "ys", "ts",
+                                                         "ps")),
+                             bufs["count"], num_bins, hw, precision)
+
+
+def host_enqueue_us(torch, fn, n=200):
+    """Host us per call of ``fn`` over ``n`` back-to-back calls, read on
+    the host clock before the synchronize: the enqueue, not the device."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def path_device_us(torch, fn, n=20):
+    """Device us per call of ``fn``: the profiler's sum of the voxelizer's
+    kernels (and, apart, of memsets, which only the tiled path issues)
+    over ``n`` calls; None where the profile holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy_ms, _, by_name = device_time(torch, prof)
+    kernels = voxelize_kernels(by_name)
+    if busy_ms is None or not kernels:
+        return {"kernels_us": None, "memset_us": None, "kernels": {}}
+    memset_us = sum(us for k, (us, _) in by_name.items()
+                    if "memset" in k.lower())
+    return {"kernels_us": sum(ms for ms, _ in kernels.values()) * 1e3 / n,
+            "memset_us": memset_us / n,
+            "kernels": {k: ms * 1e3 / c for k, (ms, c) in kernels.items()}}
+
+
+def scratch_is_zero(vc):
+    """The direct path's cached int64 cells are all zero (as every call
+    must leave them)."""
+    return all(not bool(c.any()) for c in vc._scratch.values())
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +487,7 @@ def phase_kernel(torch, vc, vox):
 
     errs = {p: {} for p in vc.PRECISIONS}
     deterministic = {}
+    direct_windows = {}
     for name, (bufs, hw) in cases.items():
         t_n = bufs["count"].shape[0]
         tiles = vc.tile_count(vc.tile_plan(c["b"], *hw), *hw)
@@ -408,7 +505,25 @@ def phase_kernel(torch, vc, vox):
             check(same, f"voxelizer {name} ({prec}): not bit-identical "
                   f"across launches or across {t_n} vs {t_n // 2} + "
                   f"{t_n - t_n // 2} windows")
-            del got, again, halves
+            # the direct path: each window alone as the routed T = 1 call,
+            # and all of them in one call, bit-equal to the tiled launch
+            # (itself bit-equal to the int64 plain version)
+            for t in range(t_n):
+                one = {k: v[t:t + 1].contiguous() for k, v in bufs.items()}
+                events = one["ev" if "ev" in one else "xs"]
+                check(vc.route(events.shape) == "direct"
+                      and torch.equal(vox.voxelize_windows(
+                          one, c["b"], hw, precision=prec), got[t:t + 1]),
+                      f"voxelizer {name} ({prec}): window {t} alone (the "
+                      f"direct path) differs from the tiled launch")
+            whole = path_fn(vc, bufs, c["b"], hw, prec, "direct")()
+            torch.cuda.synchronize()
+            check(torch.equal(whole, got) and scratch_is_zero(vc),
+                  f"voxelizer {name} ({prec}): the direct path over {t_n} "
+                  f"windows differs from the tiled one, or left its "
+                  f"scratch non-zero")
+            direct_windows[f"{name} ({prec})"] = t_n
+            del got, again, halves, whole
     f32_wire = cases["f32 wire"][0]
     for bad in ("high", "bf16"):
         try:
@@ -422,6 +537,11 @@ def phase_kernel(torch, vc, vox):
     empty = vox.voxelize_windows(z, c["b"], ecd)
     check(vc.launch_count() == before and not bool(empty.abs().sum()),
           "zero capacity must return zeros without a launch")
+    empty = vox.voxelize_windows({k: v[:1].contiguous() for k, v in z.items()},
+                                 c["b"], ecd)
+    check(vc.launch_count() == before and empty.shape == (1, c["b"], *ecd)
+          and not bool(empty.abs().sum()),
+          "zero capacity at T = 1 must return zeros without a launch")
 
     # times at the single-sequence path's wire (int16 coords, f32 ts, int8
     # ps), both precisions; HIGHEST at the BS-ERGB sensor
@@ -430,7 +550,9 @@ def phase_kernel(torch, vc, vox):
     bs_bufs, bs_hw = cases["f32 wire 625x970"]
     result = {"phase": "kernel", "max_abs_err": errs,
               "bit_equal_int64_plain": True,
-              "bit_identical": deterministic, "times_f32_wire": times,
+              "bit_identical": deterministic,
+              "direct_path_bit_equal_windows": direct_windows,
+              "times_f32_wire": times,
               "times_625x970_highest": time_variant(
                   torch, vox, bs_bufs, "highest", bs_hw, c["b"]),
               "shape": c}
@@ -2095,7 +2217,8 @@ SERVE_GROUP_WARMUP, SERVE_GROUP_TIMED = 4, 16
 SERVE_OFFLINE = 32    # pushes held to the chunked offline runner
 SERVE_CPU = 4         # pushes held to the CPU engine
 SERVE_THREAD_PUSHES = 8
-SERVE_SHAPES = (("T1_stream", 1), ("T4_group", 4), ("T16_group", 16))
+SERVE_SHAPES = (("T1_stream", 1), ("T4_group", 4), ("T8_train", 8),
+                ("T16_group", 16))
 SERVE_POOL = 80       # synthetic windows of EVENTS_PER_WINDOW events
 TOL_SERVE_OFFLINE = 1e-5
 TOL_SERVE_GROUP = 5e-4  # tests/test_serve.py:191-195
@@ -2187,15 +2310,16 @@ def phase_serve(torch, vc, vox, work, card, device="cuda"):
     E2VID groups of 4 and 16 lanes (f32 on the f32 wire, bf16 on
     compact4), the socket round trip, the engine against the chunked
     offline runner, the CPU engine and solo streams, 4 threads at once;
-    device profiles of E2VID pushes and of each group's pushes; the
-    voxelizer at the serve shapes (T = 1, 4, 16) bit-equal to its
-    int64 plain version and timed. Launches are counted per path, the
-    counts set to 0 just before each."""
+    device profiles of E2VID pushes and of each group's pushes; an E2VID
+    stream in bf16 on compact4; the voxelizer at the serve shapes and the
+    training launch's (T = 1, 4, 8, 16) bit-equal to its int64 plain
+    version on both paths, timed, the two paths in turns, with the launch
+    floor. Launches are counted per run and per voxelizer path, the counts
+    set to 0 just before each run."""
     import threading
 
     from evreal_tpu_torch import serve
-    from evreal_tpu_torch.data.packing import (alloc_buffers,
-                                               bucket_capacity, wire_dtypes)
+    from evreal_tpu_torch.data.packing import alloc_buffers, bucket_capacity
     from evreal_tpu_torch.harness.runner import MethodRunner
 
     c = ECD
@@ -2206,24 +2330,29 @@ def phase_serve(torch, vc, vox, work, card, device="cuda"):
     wins = serve_windows(SERVE_POOL, hw)
     f32 = dict(EVREAL_DTYPE=None, EVREAL_WIRE=None)
     bf16 = dict(EVREAL_DTYPE="bfloat16", EVREAL_WIRE="compact4")
-    launches = {}
+    launches, paths = {}, {}
 
     def engine(method, dev=device, **cfg):
         cfg["model_path"] = os.path.join(pretrained, method, "model.pth")
         return serve.ReconEngine.from_method(method, cfg, device=dev)
 
-    def counted(method, path, prec, want, fn):
+    def counted(method, path, prec, want, fn, route="direct"):
         """``fn()`` with the voxelizer's counts set to 0 just before and
         read just after: ``want`` launches at ``prec``, none at the
-        other."""
+        other, all of them on ``route`` (a stream's pushes take the
+        direct path, a group's the tiled one)."""
         vc.reset_launches()
         out = fn()
         torch.cuda.synchronize()
         got = dict(vc.launches_by_precision)
+        by_path = dict(vc.launches_by_path)
         expect = dict(dict.fromkeys(vc.PRECISIONS, 0), **{prec: want})
-        check(got == expect, f"serve {method} {path}: voxelizer launches "
-              f"{got}, want {expect} (one per push)")
+        expect_path = dict(dict.fromkeys(vc.PATHS, 0), **{route: want})
+        check(got == expect and by_path == expect_path,
+              f"serve {method} {path}: voxelizer launches {got} by path "
+              f"{by_path}, want {expect} on the {route} path (one per push)")
         launches.setdefault(method, {})[path] = got
+        paths.setdefault(method, {})[path] = by_path
         return out
 
     def window(k):
@@ -2269,6 +2398,23 @@ def phase_serve(torch, vc, vox, work, card, device="cuda"):
                   "sensor": list(hw), "events_per_window": EVENTS_PER_WINDOW,
                   "capacity": cap, "launches": launches[method], **res})
             del eng
+    # a bf16 stream on compact4: its T = 1 launch at DEFAULT, direct too
+    with env(**bf16):
+        eng = engine("E2VID")
+        sid = eng.open_stream(*hw)
+        ms, frame = counted(
+            "E2VID", "stream_bf16_compact4", "default",
+            SERVE_WARMUP + SERVE_TIMED,
+            lambda: timed_calls(lambda w: eng.push(sid, *w), window,
+                                SERVE_WARMUP, SERVE_TIMED))
+        check(frame.shape == hw and np.isfinite(frame).all(),
+              f"serve E2VID bf16 stream: frame {frame.shape}")
+        lat["E2VID"]["ms_per_push_bf16_compact4"] = latency(ms)
+        emit({"phase": "serve_latency", "method": "E2VID", "card": card,
+              "stream": "bf16_compact4",
+              "launches": launches["E2VID"]["stream_bf16_compact4"],
+              "ms_per_push": lat["E2VID"]["ms_per_push_bf16_compact4"]})
+        del eng
 
     # E2VID groups: ms per push_group and aggregate frames/s
     groups = {}
@@ -2284,7 +2430,8 @@ def phase_serve(torch, vc, vox, work, card, device="cuda"):
                     lambda: timed_calls(
                         lambda ws: eng.push_group(gid, ws),
                         lambda k: [window(k * n + j) for j in range(n)],
-                        SERVE_GROUP_WARMUP, SERVE_GROUP_TIMED))
+                        SERVE_GROUP_WARMUP, SERVE_GROUP_TIMED),
+                    route=vc.route((n, cap)))
                 check(frames.shape == (n,) + hw and np.isfinite(frames).all(),
                       f"serve group {n} {label}: frames {frames.shape}")
                 ms = latency(ms)
@@ -2441,35 +2588,126 @@ def phase_serve(torch, vc, vox, work, card, device="cuda"):
           "threads_max_abs_err_vs_serial": thread_err,
           "threads_bit_equal_to_serial": thread_err == 0.0})
 
-    # the voxelizer at the serve shapes, on the packer's buffers; the
-    # accumulate kernel's grid as the launch reports it
+    # the voxelizer at the serve shapes and the training launch's T = 8, on
+    # the packer's buffers: the routed call and both private paths held to
+    # the int64 plain version here, the tiled accumulate kernel's grid as
+    # its launch reports it; the timings from a fresh process
     tiles = vc.tile_count(vc.tile_plan(c["b"], *hw), *hw)
-    shapes = {}
-    for prec, wire in (("highest", "f32"), ("default", "compact4")):
-        dtypes = wire_dtypes(wire, True, hw)
+    checked = {}
+    for prec, wire in SERVE_WIRES:
         for label, t_n in SERVE_SHAPES:
-            host = alloc_buffers((t_n, 1), cap, dtypes)
-            for j in range(t_n):
-                serve._pack_window(*window(j), capacity=cap, dtypes=dtypes,
-                                   resolution=hw,
-                                   out={k: v[j] for k, v in host.items()})
-            bufs = {k: torch.from_numpy(v.reshape((t_n,) + v.shape[2:])).to(
-                device) for k, v in host.items()}
-            err = hold_to_plain(torch, vox, bufs, c["b"], hw, prec,
-                                f"serve {label} ({wire} wire)")[0]
-            grid = vc.last_accumulate_grid()
-            shapes.setdefault(prec, {})[label] = dict(
-                time_variant(torch, vox, bufs, prec, hw, c["b"]), wire=wire,
-                capacity=cap, max_abs_err=err, tiles_per_window=tiles,
-                accumulate_blocks=grid)
+            bufs = serve_shape_bufs(torch, serve, wins, hw, cap, wire, t_n,
+                                    device)
+            err, got = hold_to_plain(torch, vox, bufs, c["b"], hw, prec,
+                                     f"serve {label} ({wire} wire)")
+            fns = {p: path_fn(vc, bufs, c["b"], hw, prec, p)
+                   for p in ("direct", "tiled")}
+            for p, fn in fns.items():
+                out = fn()
+                torch.cuda.synchronize()
+                check(torch.equal(out, got), f"voxelizer serve {label} "
+                      f"({wire} wire, {prec}): the {p} path differs from "
+                      f"the int64 plain version")
+            checked.setdefault(prec, {})[label] = dict(
+                max_abs_err=err, route=vc.route((t_n, cap)),
+                tiles_per_window=tiles,
+                accumulate_blocks=vc.last_accumulate_grid(),
+                # beside the fresh process's: this one has run the profiler
+                host_enqueue_us_profiled_process={
+                    p: host_enqueue_us(torch, fn) for p, fn in fns.items()})
+            check(scratch_is_zero(vc), f"voxelizer serve {label}: the "
+                  f"direct path left its scratch non-zero")
+    timed = serve_voxelizer_times()
+    shapes = {prec: {label: dict(timed["shapes"][prec][label], **v)
+                     for label, v in by_label.items()}
+              for prec, by_label in checked.items()}
+    floor = timed["launch_floor"]
+    emit({"phase": "serve_voxelizer", "card": card, "shapes": shapes,
+          "launch_floor": floor, "timed_in": timed["timed_in"]})
     result = {"phase": "serve", "card": card, "sensor": list(hw),
               "events_per_window": EVENTS_PER_WINDOW, "capacity": cap,
               "latency": lat, "groups": groups, "socket": sock,
-              "launches": launches, "voxelize_at_serve_shapes": shapes,
+              "launches": launches, "launches_by_path": paths,
+              "voxelize_at_serve_shapes": shapes, "launch_floor": floor,
               "bit_equal_int64_plain": True,
               "phase_s": time.perf_counter() - t_phase}
     emit(result)
     return result
+
+
+SERVE_WIRES = (("highest", "f32"), ("default", "compact4"))
+
+
+def serve_shape_bufs(torch, serve, windows, hw, cap, wire, t_n, device):
+    """The packer's ``(t_n, cap)`` buffers of ``windows[:t_n]`` on
+    ``wire``, on ``device``: a push's (T = 1) or a group's."""
+    from evreal_tpu_torch.data.packing import alloc_buffers, wire_dtypes
+
+    dtypes = wire_dtypes(wire, True, hw)
+    host = alloc_buffers((t_n, 1), cap, dtypes)
+    for j in range(t_n):
+        serve._pack_window(*windows[j], capacity=cap, dtypes=dtypes,
+                           resolution=hw,
+                           out={k: v[j] for k, v in host.items()})
+    return {k: torch.from_numpy(v.reshape((t_n,) + v.shape[2:])).to(device)
+            for k, v in host.items()}
+
+
+def time_serve_voxelizer(torch, vc, vox, device="cuda"):
+    """The voxelizer's times at the serve shapes (phase 9's buffers): per
+    precision and shape the routed call beside its plain version,
+    ``index_add_`` and its bound (``time_variant``), both paths in turns
+    (CUDA events) and their host enqueue (two rounds in turns); the launch
+    floor (1 and 2 empty kernels through the direct path's binding); last,
+    each path's device time from the profiler, since a process that has
+    run the profiler enqueues every operation more slowly afterwards."""
+    from evreal_tpu_torch import serve
+    from evreal_tpu_torch.data.packing import bucket_capacity
+
+    hw = (ECD["h"], ECD["w"])
+    cap = bucket_capacity(EVENTS_PER_WINDOW)
+    wins = serve_windows(SERVE_POOL, hw)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    shapes, calls = {}, {}
+    for prec, wire in SERVE_WIRES:
+        for label, t_n in SERVE_SHAPES:
+            bufs = serve_shape_bufs(torch, serve, wins, hw, cap, wire, t_n,
+                                    device)
+            fns = {p: path_fn(vc, bufs, ECD["b"], hw, prec, p)
+                   for p in vc.PATHS}
+            ms = time_turns(torch, fns, flush)
+            host_us = {p: [] for p in vc.PATHS}
+            for p in ("tiled", "direct", "direct", "tiled"):
+                host_us[p].append(host_enqueue_us(torch, fns[p]))
+            shapes.setdefault(prec, {})[label] = dict(
+                time_variant(torch, vox, bufs, prec, hw, ECD["b"]),
+                wire=wire, capacity=cap,
+                paths={p: {"ms": ms[p], "host_enqueue_us": host_us[p]}
+                       for p in vc.PATHS})
+            calls[prec, label] = fns
+    noop = {n: (lambda n=n: vc._launch_noop(device, n)) for n in (1, 2)}
+    noop_ms = time_turns(torch, noop, flush)
+    floor = {f"{n}_launches": {"ms": noop_ms[n],
+                               "host_enqueue_us": host_enqueue_us(torch, fn)}
+             for n, fn in noop.items()}
+    for (prec, label), fns in calls.items():
+        for p, fn in fns.items():
+            shapes[prec][label]["paths"][p]["device_us"] = path_device_us(
+                torch, fn)
+    return {"shapes": shapes, "launch_floor": floor}
+
+
+def serve_voxelizer_times():
+    """``time_serve_voxelizer`` in a fresh process of this script (``python3
+    chip_smoke.py --serve-voxelizer-times``, on the same card): this
+    process has run the profiler, which slows its enqueues by 1.5-2x."""
+    proc = subprocess.run([sys.executable, SCRIPT, "--serve-voxelizer-times"],
+                          capture_output=True, text=True, timeout=900,
+                          check=False)
+    check(proc.returncode == 0, f"serve voxelizer times: exit "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return dict(json.loads(proc.stdout.strip().splitlines()[-1]),
+                timed_in="a fresh process (--serve-voxelizer-times)")
 
 
 # ---------------------------------------------------------------------------
@@ -3140,6 +3378,10 @@ def main():
     from evreal_tpu_torch.kernels import voxelize_cuda as vc
     from evreal_tpu_torch.ops import voxelize as vox
 
+    if sys.argv[1:] == ["--serve-voxelizer-times"]:  # phase 9's timings
+        emit(time_serve_voxelizer(torch, vc, vox))
+        return
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3217,25 +3459,74 @@ def main():
             "windows")} for k, v in at_launch.items()
             if v["precision"] == prec}
 
-    def serve_launches(prec):
-        return {m: {p: n[prec] for p, n in v.items() if n[prec]}
-                for m, v in served["launches"].items()
-                if any(n[prec] for n in v.values())}
+    def serve_launches(prec, route):
+        by_path = served["launches_by_path"]
+        out = {m: {p: n[prec] for p, n in v.items()
+                   if n[prec] and by_path[m][p][route]}
+               for m, v in served["launches"].items()}
+        return {m: v for m, v in out.items() if v}
 
-    def serve_shapes(prec):
+    def serve_shapes(prec, route):
         return {k: {kk: v[kk] for kk in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "windows",
             "wire", "max_abs_err", "accumulate_blocks")}
-            for k, v in served["voxelize_at_serve_shapes"][prec].items()}
+            for k, v in served["voxelize_at_serve_shapes"][prec].items()
+            if v["route"] == route}
+
+    def direct_call(prec):
+        """K1 at T = 1 on its stream wire: the routed (direct) call with
+        its plain version, library call and bound; both paths in turns,
+        their host enqueue and device time."""
+        v = served["voxelize_at_serve_shapes"][prec]["T1_stream"]
+        return {**{k: v[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "wire",
+            "max_abs_err")}, "in_turns_ms": {
+                p: v["paths"][p]["ms"] for p in vc.PATHS},
+            "host_enqueue_us": {p: v["paths"][p]["host_enqueue_us"]
+                                for p in vc.PATHS},
+            "device_us": {p: v["paths"][p]["device_us"]["kernels_us"]
+                          for p in vc.PATHS},
+            "tiled_memset_us": v["paths"]["tiled"]["device_us"]["memset_us"]}
+
+    def crossover(prec):
+        return {k: {p: v["paths"][p]["ms"] for p in vc.PATHS}
+                for k, v in served["voxelize_at_serve_shapes"][prec].items()
+                if v["route"] == "tiled"}
 
     source = "evreal_tpu_torch/kernels/csrc/voxelize.cu"
     f32_times = kern["times_f32_wire"]["highest"]
     bf16_times = lock["kernel_at_lockstep_shape"]["default_compact4"]
     lock_f32 = lock["kernel_at_lockstep_shape"]["highest_f32"]
+    k1 = direct_call("highest")
     emit({"kernels": [
+        {"name": "voxelize_direct", "route": "cuda", "source": source,
+         "path": "direct",
+         "replaces": "evreal_tpu/kernels/voxelize_pallas.py:93",
+         "precision": "highest",
+         "launches": served["launches_by_path"]["E2VID"]["stream_f32"][
+             "direct"],
+         "max_abs_err": max(
+             v["max_abs_err"] for prec in vc.PRECISIONS for v in
+             served["voxelize_at_serve_shapes"][prec].values()
+             if v["route"] == "direct"),
+         **{k: k1[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "wire")},
+         "shape": [1, ECD["e"]],
+         "in_turns_ms": k1["in_turns_ms"],
+         "host_enqueue_us": k1["host_enqueue_us"],
+         "device_us": k1["device_us"],
+         "tiled_memset_us": k1["tiled_memset_us"],
+         "launch_floor": served["launch_floor"],
+         "compact4_default": direct_call("default"),
+         "crossover_ms": {p: crossover(p) for p in vc.PRECISIONS},
+         "serve_launches": {p: serve_launches(p, "direct")
+                            for p in vc.PRECISIONS},
+         "kernel_phase_windows_bit_equal": kern[
+             "direct_path_bit_equal_windows"],
+         "bit_equal_int64_plain": True, "card": smi},
         {"name": "voxelize_windows", "route": "cuda", "source": source,
+         "path": "tiled",
          "replaces": "evreal_tpu/kernels/voxelize_pallas.py:249",
-         "replaces_also": "evreal_tpu/kernels/voxelize_pallas.py:93",
          "precision": "highest",
          "launches": main_res["voxelize_launches"],
          "launches_lockstep_f32": lock["runs"]["f32_f32wire"]["launches"][
@@ -3245,7 +3536,8 @@ def main():
              + [lock["kernel_lockstep_max_abs_err"]["highest_f32"],
                 color_launch["max_abs_err"]]
              + launch_errs("highest")
-             + [v["max_abs_err"] for v in serve_shapes("highest").values()]
+             + [v["max_abs_err"] for v in
+                serve_shapes("highest", "tiled").values()]
              + [train_launch["max_abs_err"],
                 shard_launch["highest"]["max_abs_err"]]),
          "ms": f32_times["ms"], "plain_ms": f32_times["plain_ms"],
@@ -3263,15 +3555,15 @@ def main():
          "color_launch": {k: color_launch[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "windows", "sensor", "capacity", "max_abs_err")},
-         "serve_launches": serve_launches("highest"),
-         "serve_shapes": serve_shapes("highest"),
+         "serve_launches": serve_launches("highest", "tiled"),
+         "serve_shapes": serve_shapes("highest", "tiled"),
          "train_launch": {k: train_launch[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "windows", "wire", "max_abs_err", "launches_per_step")},
          "mesh_shard_launch": mesh_launch("highest"),
          "card": smi},
         {"name": "voxelize_windows_bf16_factors", "route": "cuda",
-         "source": source,
+         "source": source, "path": "tiled",
          "replaces": "evreal_tpu/kernels/voxelize_pallas.py:249 "
                      "(bf16_factors=True, :165-169)",
          "precision": "default",
@@ -3281,7 +3573,7 @@ def main():
                                 "default_compact4"]]
                             + launch_errs("default")
                             + [v["max_abs_err"] for v in
-                               serve_shapes("default").values()]
+                               serve_shapes("default", "tiled").values()]
                             + [shard_launch["default"]["max_abs_err"]]),
          "ms": bf16_times["ms"], "plain_ms": bf16_times["plain_ms"],
          "bound_ms": bf16_times["bound_ms"],
@@ -3294,8 +3586,8 @@ def main():
                                 for m, v in by_method.items()
                                 if any(n["default"] for n in v.values())},
          "methods_launches": launch_times("default"),
-         "serve_launches": serve_launches("default"),
-         "serve_shapes": serve_shapes("default"),
+         "serve_launches": serve_launches("default", "tiled"),
+         "serve_shapes": serve_shapes("default", "tiled"),
          "mesh_shard_launch": mesh_launch("default"),
          "card": smi}]})
     print(smi, flush=True)

@@ -1,8 +1,10 @@
-// Event voxelizer for Hopper (sm_90a): a chunk of T windows per call.
+// Event voxelizer for Hopper (sm_90a): a chunk of T windows per call, by
+// one of two paths (kernels/voxelize_cuda.py:route picks it from the shape):
+// the direct path for one window (T = 1), the tiled path for a chunk.
 //
 // Replaces the Pallas TPU kernels of evreal_tpu/kernels/voxelize_pallas.py:
 //   K1 `_kernel` (pallas_call at :93), one window, reached through
-//      `voxelize_pallas` / `voxelize` — here the T = 1 case;
+//      `voxelize_pallas` / `voxelize` — the direct path below;
 //   K2 `_batched_kernel` (pallas_call at :249), a chunk of windows, reached
 //      through `voxelize_pallas_windows`, in both of its precisions:
 //      HIGHEST (f32 weights) and DEFAULT (`bf16_factors=True`: each
@@ -19,7 +21,37 @@
 // dtype, or the packed compact4 word, decoded in the thread exactly as
 // ops/voxelize.py:decode_compact4 does.
 //
-// Design: bin the events by tile, then sum each tile in shared memory. The
+// The direct path (one window; evreal_voxelize_direct). One window's whole
+// (B, H, W) grid is small: 216,000 int64 cells, 1.73 MB at 5 x 180 x 240,
+// which stays in the 50 MB L2. On sm_90 a 64-bit integer atomicAdd to
+// global memory is native (RED.E.ADD.64, done in L2), unlike the shared one
+// (a compare-and-swap loop, below). So one window needs no tiles, no
+// binning and no records. Two launches, no memset:
+//   1. deposit (grid: E / 256 blocks x T, 128 at E = 32768): each thread
+//      decodes two events with the wire's own load, computes t_norm, lo,
+//      frac and the weights with the same _rn arithmetic as the tiled path,
+//      rounds each deposit to fixed point (fixed_point below, the same
+//      rounding as `deposit`) and adds it with one 64-bit atomicAdd into a
+//      (T, B, H, W) int64 scratch that is zero when the launch starts;
+//   2. finish (grid: one block per 1024 cells, 211 at one window): each
+//      thread converts its cells with fixed_to_f32, writes the output and
+//      writes 0 back, so the scratch is zero again when the call ends and
+//      every output cell is written once.
+// The wrapper keeps one scratch per (device, stream) and drops it when a
+// launch reports an error (it may no longer be zero). The sums are integer
+// sums, so they do not depend on the order of the atomics: the direct path
+// equals the tiled path and the int64 plain version bit for bit.
+// Bound at T = 1: the bytes bound (1.13 MB of a 30,000-event window, 0.34
+// us) is below one launch, so the floor is the launch latency and the
+// host's enqueue (hence the cached plan and the short C entry). On the
+// device the deposits' L2 atomics bound it: the events of a moving blob hit
+// few pixels, and atomics to one cell serialize in L2. The finish kernel
+// reads, converts and clears the whole dense grid, so the path's device time
+// grows with T * B * H * W, and the scratch leaves L2 as T grows: the tiled
+// path keeps every T > 1.
+//
+// The tiled path (a chunk; evreal_voxelize_windows, evreal_voxelize_compact4)
+// bins the events by tile, then sums each tile in shared memory. The
 // wrapper cuts each window's (B, H, W) grid into tiles of rows x cols pixels
 // (kernels/voxelize_cuda.py:tile_plan): bands of whole rows where a row
 // fits, else pieces of a row, so that a tile's B * rows * cols int64 cells
@@ -432,6 +464,18 @@ __global__ void __launch_bounds__(kScatterThreads)
   }
 }
 
+// A deposit w in two's complement fixed point at 2^32; BF16 rounds w to
+// bf16 (round to nearest even) first.
+template <bool BF16>
+__device__ __forceinline__ unsigned long long fixed_point(float w) {
+  if constexpr (BF16) {
+    w = __bfloat162float(__float2bfloat16_rn(w));
+  }
+  // w * 2^32 is exact in f32 (a power-of-two scale); round to nearest
+  return static_cast<unsigned long long>(
+      __float2ll_rn(__fmul_rn(w, kFixedScale)));
+}
+
 // Adds w, rounded to fixed point at 2^32, to the int64 cell in shared
 // memory. The add is two native 32-bit atomics: the low words add modulo
 // 2^32, and the thread whose add wraps the low word carries one into the
@@ -441,12 +485,7 @@ __global__ void __launch_bounds__(kScatterThreads)
 // the order of the adds.
 template <bool BF16>
 __device__ __forceinline__ void deposit(unsigned long long* cell, float w) {
-  if constexpr (BF16) {
-    w = __bfloat162float(__float2bfloat16_rn(w));
-  }
-  // w * 2^32 is exact in f32 (a power-of-two scale); round to nearest
-  const unsigned long long fixed = static_cast<unsigned long long>(
-      __float2ll_rn(__fmul_rn(w, kFixedScale)));
+  const unsigned long long fixed = fixed_point<BF16>(w);
   unsigned* word = reinterpret_cast<unsigned*>(cell);  // little endian
   const unsigned lo = static_cast<unsigned>(fixed);
   const unsigned old = atomicAdd(word, lo);
@@ -693,106 +732,299 @@ int launch(const Wire& wire, bool bf16, const int* count, void* scratch,
   return static_cast<int>(err);
 }
 
-template <typename C, typename TS>
-int dispatch_pol(int pol_type, const void* xs, const void* ys, const void* ts,
-                 const void* ps, bool bf16, const int* count, void* scratch,
-                 float* out, int T, int E, int B, int H, int W, int rows,
-                 int cols, float u16_scale, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// The direct path (header: "The direct path")
+// ---------------------------------------------------------------------------
+
+constexpr int kDirectThreads = 128;
+constexpr int kDirectItems = 2;
+constexpr int kFinishThreads = 256;
+constexpr int kFinishItems = 4;
+
+template <bool BF16>
+__device__ __forceinline__ void deposit_global(unsigned long long* cell,
+                                               float w) {
+  const unsigned long long fixed = fixed_point<BF16>(w);
+  if (fixed) atomicAdd(cell, fixed);  // native RED.E.ADD.64, in L2
+}
+
+// 1. Every valid in-bounds event's two deposits into the window's int64
+// cells, cells[t][bin][y][x].
+template <bool BF16, typename Wire>
+__global__ void __launch_bounds__(kDirectThreads)
+    voxelize_deposit_kernel(Wire wire, const int* __restrict__ count,
+                            unsigned long long* __restrict__ cells, int E,
+                            int B, int H, int W, float u16_scale) {
+  constexpr int kSlots = kDirectThreads * kDirectItems;
+  const int t = blockIdx.y;
+  const int n = count[t];
+  const int valid = min(n, E);
+  const int first = blockIdx.x * kSlots;
+  if (first >= valid) return;
+  const long long row = static_cast<long long>(t) * E;
+  Event ev[kDirectItems];
+#pragma unroll
+  for (int k = 0; k < kDirectItems; ++k) {
+    const int slot = first + k * kDirectThreads + threadIdx.x;
+    ev[k] = Event{-1, -1, 0.0f, 0.0f, 0u};
+    if (slot < valid) ev[k] = wire.load(row, slot, n, E, B, u16_scale);
+  }
+  const long long plane = static_cast<long long>(H) * W;
+  unsigned long long* grid = cells + static_cast<long long>(t) * B * plane;
+#pragma unroll
+  for (int k = 0; k < kDirectItems; ++k) {
+    if (!in_bounds(ev[k].x, ev[k].y, H, W)) continue;
+    // the sign of p only, as the tiled path's records keep it
+    const float p = ev[k].p > 0.0f ? 1.0f : -1.0f;
+    const int lo = static_cast<int>(floorf(ev[k].tn));
+    const float frac = __fsub_rn(ev[k].tn, static_cast<float>(lo));
+    unsigned long long* cell =
+        grid + static_cast<long long>(ev[k].y) * W + ev[k].x;
+    if (lo >= 0 && lo < B) {
+      deposit_global<BF16>(cell + lo * plane,
+                           __fmul_rn(p, __fsub_rn(1.0f, frac)));
+    }
+    // lo + 1 >= 0: an unsorted timestamp with t_norm <= -1 deposits nothing
+    if (lo + 1 >= 0 && lo + 1 < B) {
+      deposit_global<BF16>(cell + (lo + 1) * plane, __fmul_rn(p, frac));
+    }
+  }
+}
+
+// 2. Every cell to f32, and back to zero for the next call.
+__global__ void __launch_bounds__(kFinishThreads)
+    voxelize_finish_kernel(unsigned long long* __restrict__ cells,
+                           float* __restrict__ out, long long n) {
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kFinishThreads * kFinishItems +
+      threadIdx.x;
+  long long v[kFinishItems];
+#pragma unroll
+  for (int k = 0; k < kFinishItems; ++k) {
+    const long long i = first + k * kFinishThreads;
+    v[k] = i < n ? static_cast<long long>(cells[i]) : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < kFinishItems; ++k) {
+    const long long i = first + k * kFinishThreads;
+    if (i < n) {
+      out[i] = fixed_to_f32(v[k]);
+      cells[i] = 0ull;
+    }
+  }
+}
+
+template <typename Wire>
+int launch_direct(const Wire& wire, bool bf16, const int* count,
+                  unsigned long long* cells, float* out, int T, int E, int B,
+                  int H, int W, float u16_scale, cudaStream_t stream) {
+  constexpr int kSlots = kDirectThreads * kDirectItems;
+  constexpr int kCells = kFinishThreads * kFinishItems;
+  const dim3 grid((E + kSlots - 1) / kSlots, T);
+  if (bf16) {
+    voxelize_deposit_kernel<true, Wire><<<grid, kDirectThreads, 0, stream>>>(
+        wire, count, cells, E, B, H, W, u16_scale);
+  } else {
+    voxelize_deposit_kernel<false, Wire><<<grid, kDirectThreads, 0, stream>>>(
+        wire, count, cells, E, B, H, W, u16_scale);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = static_cast<long long>(T) * B * H * W;
+  voxelize_finish_kernel<<<static_cast<unsigned>((n + kCells - 1) / kCells),
+                           kFinishThreads, 0, stream>>>(cells, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void evreal_noop_kernel() {}
+
+// ---------------------------------------------------------------------------
+// dispatch
+// ---------------------------------------------------------------------------
+
+// f(wire) for the split buffers of the given type codes: coords 0 int16,
+// 1 uint8, 2 int32, 3 float32; ts 0 float32, 1 uint16; ps 0 int8, 1
+// float32. -1 for a code it does not take.
+template <typename C, typename TS, typename F>
+int with_pol(int pol_type, const void* xs, const void* ys, const void* ts,
+             const void* ps, F&& f) {
+  const C* x = static_cast<const C*>(xs);
+  const C* y = static_cast<const C*>(ys);
+  const TS* t = static_cast<const TS*>(ts);
   switch (pol_type) {
     case 0:
-      return launch(SplitWire<C, TS, int8_t>{
-                        static_cast<const C*>(xs), static_cast<const C*>(ys),
-                        static_cast<const TS*>(ts),
-                        static_cast<const int8_t*>(ps)},
-                    bf16, count, scratch, out, T, E, B, H, W, rows, cols,
-                    u16_scale, stream);
+      return f(SplitWire<C, TS, int8_t>{x, y, t,
+                                        static_cast<const int8_t*>(ps)});
     case 1:
-      return launch(SplitWire<C, TS, float>{
-                        static_cast<const C*>(xs), static_cast<const C*>(ys),
-                        static_cast<const TS*>(ts),
-                        static_cast<const float*>(ps)},
-                    bf16, count, scratch, out, T, E, B, H, W, rows, cols,
-                    u16_scale, stream);
+      return f(SplitWire<C, TS, float>{x, y, t,
+                                       static_cast<const float*>(ps)});
   }
   return -1;
 }
 
-template <typename C>
-int dispatch_ts(int ts_type, int pol_type, const void* xs, const void* ys,
-                const void* ts, const void* ps, bool bf16, const int* count,
-                void* scratch, float* out, int T, int E, int B, int H, int W,
-                int rows, int cols, float u16_scale, cudaStream_t stream) {
+template <typename C, typename F>
+int with_ts(int ts_type, int pol_type, const void* xs, const void* ys,
+            const void* ts, const void* ps, F&& f) {
   switch (ts_type) {
     case 0:
-      return dispatch_pol<C, float>(pol_type, xs, ys, ts, ps, bf16, count,
-                                    scratch, out, T, E, B, H, W, rows, cols,
-                                    u16_scale, stream);
+      return with_pol<C, float>(pol_type, xs, ys, ts, ps, f);
     case 1:
-      return dispatch_pol<C, uint16_t>(pol_type, xs, ys, ts, ps, bf16, count,
-                                       scratch, out, T, E, B, H, W, rows,
-                                       cols, u16_scale, stream);
+      return with_pol<C, uint16_t>(pol_type, xs, ys, ts, ps, f);
   }
   return -1;
+}
+
+template <typename F>
+int with_split_wire(int coord_type, int ts_type, int pol_type, const void* xs,
+                    const void* ys, const void* ts, const void* ps, F&& f) {
+  switch (coord_type) {
+    case 0:
+      return with_ts<int16_t>(ts_type, pol_type, xs, ys, ts, ps, f);
+    case 1:
+      return with_ts<uint8_t>(ts_type, pol_type, xs, ys, ts, ps, f);
+    case 2:
+      return with_ts<int32_t>(ts_type, pol_type, xs, ys, ts, ps, f);
+    case 3:
+      return with_ts<float>(ts_type, pol_type, xs, ys, ts, ps, f);
+  }
+  return -1;
+}
+
+// The compact4 wire of a layout (data/packing.py:compact4_layout), or
+// false for one the decoder does not take.
+bool compact4_wire(const void* ev, int idx_bits, int ts_bits, int W,
+                   Compact4Wire* wire) {
+  if (ts_bits < 12 || ts_bits > 16 || idx_bits < 1 ||
+      idx_bits + ts_bits > 31) {
+    return false;
+  }
+  *wire = Compact4Wire{static_cast<const uint32_t*>(ev), idx_bits, ts_bits,
+                       fast_div(W)};
+  return true;
+}
+
+// f() with `device` as the calling thread's current device, restored after:
+// set only where it differs.
+template <typename F>
+int on_device(int device, F&& f) {
+  int previous = 0;
+  cudaError_t err = cudaGetDevice(&previous);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (previous != device) {
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int ret = f();
+  if (previous != device) {
+    err = cudaSetDevice(previous);
+    if (ret == 0) ret = static_cast<int>(err);
+  }
+  return ret;
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. `scratch` holds the (T, E) 8-byte
-// records, then 3 * T * tiles + T + 1 int32 counters, which the call zeroes
+// Plain C interface, loaded with ctypes. Each entry returns -1 for a type
+// code, shape, tile plan or wire layout it does not take, else the first
+// non-zero CUDA error of its launches (0 on success); it launches on
+// `stream` of `device`, which it makes current for the call.
+
+// The tiled path. `scratch` holds the (T, E) 8-byte records, then
+// 3 * T * tiles + T + 1 int32 counters, which the call zeroes
 // (kernels/voxelize_cuda.py:_buffers), for the tiles of rows x cols pixels
 // of kernels/voxelize_cuda.py:tile_plan; `out` is the (T, B, H, W) f32
 // output, written whole. `bf16` selects the bf16-factor (DEFAULT) variant.
-// Type codes: coords 0 int16, 1 uint8, 2 int32, 3 float32; ts 0 float32,
-// 1 uint16; ps 0 int8, 1 float32. Returns -1 for a type code, tile plan or
-// wire layout it does not take, else the first non-zero CUDA error of its
-// memset and three launches (0 on success).
+// Type codes as with_split_wire's.
 extern "C" int evreal_voxelize_windows(
     const void* xs, const void* ys, const void* ts, const void* ps,
     const void* count, void* scratch, void* out, int T, int E, int B, int H,
     int W, int rows, int cols, int coord_type, int ts_type, int pol_type,
-    int bf16, float u16_scale, void* stream) {
+    int bf16, float u16_scale, int device, void* stream) {
   const int* c = static_cast<const int*>(count);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool b = bf16 != 0;
-  switch (coord_type) {
-    case 0:
-      return dispatch_ts<int16_t>(ts_type, pol_type, xs, ys, ts, ps, b, c,
-                                  scratch, o, T, E, B, H, W, rows, cols,
-                                  u16_scale, s);
-    case 1:
-      return dispatch_ts<uint8_t>(ts_type, pol_type, xs, ys, ts, ps, b, c,
-                                  scratch, o, T, E, B, H, W, rows, cols,
-                                  u16_scale, s);
-    case 2:
-      return dispatch_ts<int32_t>(ts_type, pol_type, xs, ys, ts, ps, b, c,
-                                  scratch, o, T, E, B, H, W, rows, cols,
-                                  u16_scale, s);
-    case 3:
-      return dispatch_ts<float>(ts_type, pol_type, xs, ys, ts, ps, b, c,
-                                scratch, o, T, E, B, H, W, rows, cols,
-                                u16_scale, s);
-  }
-  return -1;
+  return on_device(device, [&] {
+    return with_split_wire(
+        coord_type, ts_type, pol_type, xs, ys, ts, ps, [&](const auto& wire) {
+          return launch(wire, bf16 != 0, c, scratch, o, T, E, B, H, W, rows,
+                        cols, u16_scale, s);
+        });
+  });
 }
 
-// The packed compact4 wire: `ev` (T, E) uint32, the layout's idx_bits and
-// ts_bits (12..16) from data/packing.py:compact4_layout.
+// The tiled path on the packed compact4 wire: `ev` (T, E) uint32, the
+// layout's idx_bits and ts_bits (12..16) from data/packing.py:
+// compact4_layout.
 extern "C" int evreal_voxelize_compact4(const void* ev, const void* count,
                                         void* scratch, void* out, int T,
                                         int E, int B, int H, int W, int rows,
                                         int cols, int idx_bits, int ts_bits,
-                                        int bf16, float u16_scale,
+                                        int bf16, float u16_scale, int device,
                                         void* stream) {
-  if (ts_bits < 12 || ts_bits > 16 || idx_bits < 1 ||
-      idx_bits + ts_bits > 31) {
+  Compact4Wire wire;
+  if (!compact4_wire(ev, idx_bits, ts_bits, W, &wire)) return -1;
+  return on_device(device, [&] {
+    return launch(wire, bf16 != 0, static_cast<const int*>(count), scratch,
+                  static_cast<float*>(out), T, E, B, H, W, rows, cols,
+                  u16_scale, static_cast<cudaStream_t>(stream));
+  });
+}
+
+// What a direct call takes that does not change from call to call: the
+// wrapper keeps one per (device, dtypes, shapes, precision) key
+// (kernels/voxelize_cuda.py:_DirectPlan, field for field).
+struct DirectPlan {
+  int T, E, B, H, W;
+  int compact4;                       // 0: split buffers, 1: compact4
+  int coord_type, ts_type, pol_type;  // split buffers: with_split_wire's
+  int idx_bits, ts_bits;              // compact4: its layout
+  int bf16;
+  int device;
+  float u16_scale;
+};
+
+// The direct path: `a`..`d` are xs, ys, ts, ps, or `a` the compact4 words;
+// `cells` the (T, B, H, W) int64 scratch, zero on entry and on return;
+// `out` the (T, B, H, W) f32 output, written whole.
+extern "C" int evreal_voxelize_direct(const DirectPlan* p, const void* a,
+                                      const void* b, const void* c,
+                                      const void* d, const void* count,
+                                      void* cells, void* out, void* stream) {
+  if (p->T < 1 || p->T > 65535 || p->E < 1 || p->B < 1 || p->H < 1 ||
+      p->W < 1 || p->H >= (1 << 24) || p->W >= (1 << 24)) {
     return -1;
   }
-  const Compact4Wire wire{static_cast<const uint32_t*>(ev), idx_bits, ts_bits,
-                          fast_div(W)};
-  return launch(wire, bf16 != 0, static_cast<const int*>(count), scratch,
-                static_cast<float*>(out), T, E, B, H, W, rows, cols,
-                u16_scale, static_cast<cudaStream_t>(stream));
+  const int* n = static_cast<const int*>(count);
+  unsigned long long* acc = static_cast<unsigned long long*>(cells);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](const auto& wire) {
+    return launch_direct(wire, p->bf16 != 0, n, acc, o, p->T, p->E, p->B,
+                         p->H, p->W, p->u16_scale, s);
+  };
+  if (p->compact4) {
+    Compact4Wire wire;
+    if (!compact4_wire(a, p->idx_bits, p->ts_bits, p->W, &wire)) return -1;
+    return on_device(p->device, [&] { return run(wire); });
+  }
+  return on_device(p->device, [&] {
+    return with_split_wire(p->coord_type, p->ts_type, p->pol_type, a, b, c, d,
+                           run);
+  });
+}
+
+// `launches` empty kernels through the same binding and device handling as
+// evreal_voxelize_direct: the launch floor the smoke times beside it.
+extern "C" int evreal_noop(int launches, int device, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return on_device(device, [&] {
+    for (int i = 0; i < launches; ++i) {
+      evreal_noop_kernel<<<1, 32, 0, s>>>();
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
+  });
 }
 
 // Blocks of the last accumulate launch: min(T x tiles, the resident blocks

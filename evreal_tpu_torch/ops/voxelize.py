@@ -187,8 +187,9 @@ def voxelize_windows(bufs, num_bins, hw, precision=None):
     ``{ev, count}``, ``count`` a ``(T,)`` int32) -> ``(T, num_bins, H, W)``
     f32. ``precision``: ``None``/"highest" or "default" (bf16 factors);
     anything else raises. CPU tensors take the plain version; CUDA tensors
-    launch the kernels (per call a count, a scatter and an accumulate
-    kernel, compact4 decoded in the first two)."""
+    launch the kernels, compact4 decoded in them: one window (T = 1) a
+    deposit and a finish kernel, a chunk a count, a scatter and an
+    accumulate kernel (``voxelize_cuda.route``)."""
     bf16 = voxelize_cuda.check_precision(precision)
     dev = bufs["ev" if "ev" in bufs else "xs"].device
     if dev.type == "cpu":

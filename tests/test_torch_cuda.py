@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from evreal_tpu_torch.data.packing import encode_compact4, quantize_ts
+from evreal_tpu_torch.data.packing import (compact4_layout,
+                                           encode_compact4, quantize_ts)
 from evreal_tpu_torch.kernels import voxelize_cuda
 from evreal_tpu_torch.ops import voxelize as tvox
 
@@ -178,6 +179,137 @@ def test_deterministic_across_launches_and_groupings(cuda_device,
         assert torch.equal(whole, vox(slice(0, 32)))
         halves = torch.cat([vox(slice(0, 16)), vox(slice(16, 32))])
         assert torch.equal(whole, halves)
+
+
+# ---------------------------------------------------------------------------
+# the direct path (one window): voxelize_cuda._voxelize_direct
+# ---------------------------------------------------------------------------
+
+def every_wire(cuda_device, h=H, w=W, t=8, e=4096):
+    """{wire: (events, layout)} for the private paths: every split wire of
+    ``wires`` and compact4, with ``windows``' edge cases."""
+    out = {k: (on(cuda_device, *v), None)
+           for k, v in wires(h, w, t, e).items()}
+    args = wires(h, w, t, e)["int16 / f32 / int8"]
+    out["compact4"] = (on(cuda_device, compact4(*args, hw=(h, w)), args[4]),
+                       compact4_layout((h, w)))
+    return out
+
+
+def window_of(arrays, t):
+    """Window ``t`` of (T, E) buffers and their (T,) count, as (1, E)."""
+    return [a[t:t + 1].contiguous() for a in arrays]
+
+
+def paths(arrays, layout, precision):
+    """Both private paths on ``arrays`` (events then count)."""
+    *events, count = arrays
+    return {p: fn(tuple(events), count, B, (H, W), precision, layout)
+            for p, fn in (("direct", voxelize_cuda._voxelize_direct),
+                          ("tiled", voxelize_cuda._voxelize_tiled))}
+
+
+def scratch_is_zero():
+    return all(not bool(c.any()) for c in voxelize_cuda._scratch.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("wire", ["int16 / f32 / int8", "fractional f32 coords",
+                                  "uint8 / uint16", "int32 / f32 ps",
+                                  "compact4"])
+def test_direct_path_matches_plain_and_tiled(cuda_device, wire, precision):
+    """Each window of ``windows`` (count 0 and E, a degenerate dt, an
+    unsorted timestamp with t_norm <= -1, out-of-bounds and fractional
+    negative coordinates) alone at T = 1: the direct path bit-equal to the
+    int64 plain version and to the tiled path; the public entry routes
+    there, one launch a call; the scratch is zero after every call."""
+    arrays, layout = every_wire(cuda_device)[wire]
+    bf16 = precision == "default"
+    keys = ("ev", "count") if layout else ("xs", "ys", "ts", "ps", "count")
+    for t in range(arrays[0].shape[0]):
+        one = window_of(arrays, t)
+        bufs = dict(zip(keys, one))
+        exact = tvox.voxelize_buffers_plain(bufs, B, (H, W),
+                                            accum_dtype=torch.int64,
+                                            bf16_factors=bf16)
+        got = paths(one, layout, precision)
+        voxelize_cuda.reset_launches()
+        routed = tvox.voxelize_windows(bufs, B, (H, W), precision=precision)
+        torch.cuda.synchronize()
+        assert voxelize_cuda.launches_by_path == {"direct": 1, "tiled": 0}
+        assert got["direct"].is_contiguous() and routed.is_contiguous()
+        assert torch.equal(got["direct"], exact)
+        assert torch.equal(got["tiled"], exact)
+        assert torch.equal(routed, exact)
+        assert scratch_is_zero()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 8, 16])
+def test_direct_path_at_several_windows_matches_tiled(cuda_device, t):
+    """The direct path takes any T (the smoke times it beside the tiled
+    path at T = 4, 8, 16; only T = 1 is routed to it): bit-equal."""
+    for wire in ("int16 / f32 / int8", "compact4"):
+        arrays, layout = every_wire(cuda_device, t=t)[wire]
+        got = paths(arrays, layout, "highest")
+        torch.cuda.synchronize()
+        assert torch.equal(got["direct"], got["tiled"])
+        assert scratch_is_zero()
+
+
+@pytest.mark.cuda
+def test_direct_zero_capacity_returns_zeros_without_launch(cuda_device):
+    z = torch.zeros((1, 0), dtype=torch.int16, device=cuda_device)
+    f = torch.zeros((1, 0), device=cuda_device)
+    count = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    before = dict(voxelize_cuda.launches_by_path)
+    out = voxelize_cuda.voxelize(z, z, f, z.to(torch.int8), count, B, (H, W))
+    assert voxelize_cuda.launches_by_path == before
+    assert out.shape == (1, B, H, W) and not bool(out.any())
+
+
+@pytest.mark.cuda
+def test_direct_calls_on_two_streams_match_serial(cuda_device):
+    """Calls alternating between two streams (a scratch each) give what
+    the same calls give one after another on one stream, bit for bit, and
+    two calls on the same input are bit-identical."""
+    arrays, _ = every_wire(cuda_device, t=6)["int16 / f32 / int8"]
+    one = [window_of(arrays, t) for t in range(6)]
+    serial = [voxelize_cuda.voxelize(*a, B, (H, W)) for a in one]
+    again = [voxelize_cuda.voxelize(*a, B, (H, W)) for a in one]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    alternating = []
+    for k, a in enumerate(one):
+        with torch.cuda.stream(streams[k % 2]):
+            alternating.append(voxelize_cuda.voxelize(*a, B, (H, W)))
+    torch.cuda.synchronize()
+    for a, b, c in zip(serial, again, alternating):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert len(voxelize_cuda._scratch) >= 3 and scratch_is_zero()
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_on_first_and_cached_keys(cuda_device):
+    """What ``test_wrapper_rejects_what_the_kernel_does_not_take`` covers,
+    at T = 1 (the direct path) and T = 8 (the tiled path), once with an
+    empty check cache and once after the valid call of the same shapes
+    cached its key: the same errors."""
+    full = on(cuda_device, *windows(3))
+    for args in (window_of(full, 0), full):
+        xs, ys, ts, ps, count = args
+        strided = torch.stack([xs, xs], dim=-1)[..., 0]  # same values
+        bad = {"contiguous": (strided, ys, ts, ps, count),
+               "dtype": (xs, ys, ts.double(), ps, count),
+               "count": (xs, ys, ts, ps, count.long())}
+        for cached in (False, True):
+            voxelize_cuda._plans.clear()
+            if cached:
+                voxelize_cuda.voxelize(*args, B, (H, W))
+            for match, a in bad.items():
+                with pytest.raises(ValueError, match=match):
+                    voxelize_cuda.voxelize(*a, B, (H, W))
 
 
 # ---------------------------------------------------------------------------

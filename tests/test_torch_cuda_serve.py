@@ -78,13 +78,15 @@ def test_engine_on_the_card_matches_the_cpu(cuda_device):
 
 @pytest.mark.parametrize("switches,lanes,precision", [
     ({}, 1, "highest"), ({}, 4, "highest"),
+    ({"EVREAL_DTYPE": "bfloat16", "EVREAL_WIRE": "compact4"}, 1, "default"),
     ({"EVREAL_DTYPE": "bfloat16", "EVREAL_WIRE": "compact4"}, 4, "default")])
 def test_serve_launches_bit_equal_to_int64_plain(cuda_device, monkeypatch,
                                                  switches, lanes, precision):
-    """One launch per push (T = 1) or push_group (T = lanes), each output
-    bit-equal to ``voxelize_buffers_plain(accum_dtype=torch.int64)`` on
-    the launch's own buffers; the accumulate kernel's grid is one block
-    per (window, tile) pair while the pairs fit one block an SM."""
+    """One launch per push (T = 1, the direct path) or push_group (T =
+    lanes, the tiled path), each output bit-equal to
+    ``voxelize_buffers_plain(accum_dtype=torch.int64)`` on the launch's own
+    buffers; the tiled accumulate kernel's grid is one block per (window,
+    tile) pair while the pairs fit one block an SM."""
     for k, v in switches.items():
         monkeypatch.setenv(k, v)
     seen = []
@@ -114,10 +116,15 @@ def test_serve_launches_bit_equal_to_int64_plain(cuda_device, monkeypatch,
     want = dict.fromkeys(voxelize_cuda.PRECISIONS, 0)
     want[precision] = pushes
     assert voxelize_cuda.launches_by_precision == want
-    pairs = lanes * voxelize_cuda.tile_count(voxelize_cuda.tile_plan(B, H, W),
-                                             H, W)
-    assert pairs <= torch.cuda.get_device_properties(0).multi_processor_count
-    assert voxelize_cuda.last_accumulate_grid() == pairs
+    path = voxelize_cuda.route((lanes, 1))
+    assert voxelize_cuda.launches_by_path == dict(
+        dict.fromkeys(voxelize_cuda.PATHS, 0), **{path: pushes})
+    if path == "tiled":
+        pairs = lanes * voxelize_cuda.tile_count(
+            voxelize_cuda.tile_plan(B, H, W), H, W)
+        assert pairs <= torch.cuda.get_device_properties(
+            0).multi_processor_count
+        assert voxelize_cuda.last_accumulate_grid() == pairs
     assert len(seen) == pushes
     for bufs, got, prec in seen:
         assert bufs["count"].shape == (lanes,)

@@ -1,9 +1,16 @@
 """The CUDA voxelizer's tiling (evreal_tpu_torch/kernels/voxelize_cuda.py:
-tile_plan) and the indexing its three kernels do (csrc/voxelize.cu), on the
-CPU: the tiles cover every cell of the grid exactly once within the shared
-memory budget, and a plain PyTorch emulation of count -> scatter ->
+tile_plan) and the indexing its three tiled kernels do (csrc/voxelize.cu),
+on the CPU: the tiles cover every cell of the grid exactly once within the
+shared memory budget, and a plain PyTorch emulation of count -> scatter ->
 accumulate over the plan, with the records of each segment in any order,
-equals the int64 fixed-point plain version bit for bit."""
+equals the int64 fixed-point plain version bit for bit. Also the wrapper's
+host side: the routing of a call by its shape, and the per-key check cache
+(its checks run on CPU tensors with the kernels' device type set to
+"cpu"; nothing launches)."""
+
+import ctypes
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,6 +23,8 @@ from evreal_tpu_torch.ops import voxelize as tvox
 
 torch.set_num_threads(1)
 
+HW = (24, 32)
+LAYOUT = compact4_layout(HW)
 # ECD/HQF, MVSEC/CED and BS-ERGB sensors (tools/bs_ergb_to_npy.py:15-16)
 SENSORS = [(180, 240), (260, 346), (625, 970)]
 
@@ -198,3 +207,157 @@ def test_tiled_emulation_equals_int64_plain(wire, num_bins, hw, budget, t, e,
         assert len({k for k, (y0, x0, rh, cw) in
                     enumerate(tiles_of(plan, *hw))
                     if want[1, :, y0:y0 + rh, x0:x0 + cw].any()}) > 1
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's routing and its per-key check cache
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,path", [
+    ((1, 32768), "direct"), ((1, 0), "direct"), ((2, 32768), "tiled"),
+    ((4, 1), "tiled"), ((512, 32768), "tiled"), ((0, 16), "tiled"),
+    ((16,), "tiled"), ((1, 2, 3), "tiled")])
+def test_route_is_a_function_of_the_shape(shape, path):
+    assert vc.route(shape) == path
+    assert vc.route(torch.Size(shape)) == path
+
+
+def test_public_entries_route_by_shape(monkeypatch):
+    """``voxelize`` and ``voxelize_compact4`` hand T = 1 to the direct path
+    and any other T to the tiled one, with the same arguments."""
+    calls = []
+    for path in vc.PATHS:
+        monkeypatch.setattr(
+            vc, f"_voxelize_{path}",
+            lambda events, count, *rest, path=path: calls.append(
+                (path, tuple(events[0].shape), count.shape, rest)))
+    split = wire_bufs("int16", 0, 4, 64, *HW)
+    packed = wire_bufs("compact4", 0, 4, 64, *HW)
+    for t in (1, 4):
+        vc.voxelize(*(split[k][:t] for k in ("xs", "ys", "ts", "ps",
+                                              "count")), 5, HW)
+        vc.voxelize_compact4(packed["ev"][:t], packed["count"][:t], 5, HW,
+                             list(LAYOUT), "default")
+    assert calls == [
+        (path, (t, 64), (t,), rest) for path, t in (("direct", 1),
+                                                    ("tiled", 4))
+        for rest in ((5, HW, None), (5, HW, "default", LAYOUT))]
+
+
+def test_direct_plan_matches_the_c_struct():
+    """``_DirectPlan`` mirrors ``csrc/voxelize.cu:DirectPlan`` field for
+    field (ctypes passes it by address)."""
+    src = Path(vc._SOURCE).read_text()
+    body = re.search(r"struct DirectPlan \{(.*?)\};", src, re.S).group(1)
+    names = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        decl = decl.strip()
+        if decl:
+            kind, rest = decl.split(None, 1)
+            names += [(n.strip(), kind) for n in rest.split(",")]
+    assert names == [(n, "float" if t is ctypes.c_float else "int")
+                     for n, t in vc._DirectPlan._fields_]
+
+
+
+
+@pytest.fixture
+def cpu_checks(monkeypatch):
+    """The wrapper's checks on CPU tensors: the kernels' device type set to
+    "cpu", an empty plan cache."""
+    monkeypatch.setattr(vc, "_DEVICE_TYPE", "cpu")
+    monkeypatch.setattr(vc, "_plans", {})
+
+
+def strided(a):
+    """``a``'s values in a tensor that is not contiguous."""
+    return torch.stack([a, a], dim=-1)[..., 0]
+
+
+def first_windows(wire, t):
+    """The first ``t`` windows of ``wire_bufs``' edge-case windows."""
+    return {k: v[:t].contiguous()
+            for k, v in wire_bufs(wire, 0, 4, 64, *HW).items()}
+
+
+def split_call(bufs):
+    return tuple(bufs[k] for k in ("xs", "ys", "ts", "ps")), bufs["count"]
+
+
+# {name: (wire, bufs -> (events, count, layout))} that the checks refuse
+REFUSED = {
+    "ts dtype": ("int16", lambda b: ((b["xs"], b["ys"], b["ts"].double(),
+                                      b["ps"]), b["count"], None)),
+    "xs, ys dtypes": ("int16", lambda b: ((b["xs"], b["ys"].int(), b["ts"],
+                                           b["ps"]), b["count"], None)),
+    "coord dtype": ("int16", lambda b: ((b["xs"].double(), b["ys"].double(),
+                                         b["ts"], b["ps"]), b["count"],
+                                        None)),
+    "ps dtype": ("int16", lambda b: ((b["xs"], b["ys"], b["ts"],
+                                      b["ps"].int()), b["count"], None)),
+    "shape": ("int16", lambda b: ((b["xs"], b["ys"][:, 1:].contiguous(),
+                                   b["ts"], b["ps"]), b["count"], None)),
+    "not (T, E)": ("int16", lambda b: ((b["xs"][0], b["ys"][0], b["ts"][0],
+                                        b["ps"][0]), b["count"], None)),
+    "contiguous": ("int16", lambda b: ((strided(b["xs"]), b["ys"], b["ts"],
+                                        b["ps"]), b["count"], None)),
+    "count dtype": ("int16", lambda b: (split_call(b)[0], b["count"].long(),
+                                        None)),
+    "count shape": ("int16", lambda b: (split_call(b)[0],
+                                        b["count"].repeat(2), None)),
+    "device": ("int16", lambda b: ((b["xs"], b["ys"].to("meta"), b["ts"],
+                                    b["ps"]), b["count"], None)),
+    "device type": ("int16", lambda b: (
+        tuple(a.to("meta") for a in split_call(b)[0]),
+        b["count"].to("meta"), None)),
+    "ev dtype": ("compact4", lambda b: ((b["ev"].long(),), b["count"],
+                                        LAYOUT)),
+    "ev contiguous": ("compact4", lambda b: ((strided(b["ev"]),),
+                                             b["count"], LAYOUT)),
+}
+
+
+@pytest.mark.parametrize("t", [1, 4])
+@pytest.mark.parametrize("refused", list(REFUSED))
+def test_check_cache_refuses_as_a_first_call_would(cpu_checks, refused, t):
+    """A call that the checks refuse raises the same error with an empty
+    cache and after the valid call of the same wire and shapes cached its
+    plan; the valid call's plan is made once."""
+    wire, wrong = REFUSED[refused]
+    bufs = first_windows(wire, t)
+    if wire == "compact4":
+        good = ((bufs["ev"],), bufs["count"], LAYOUT)
+    else:
+        good = (*split_call(bufs), None)
+    events, count, layout = wrong(bufs)
+    with pytest.raises(ValueError) as first:
+        vc._plan(events, count, 5, HW, None, layout)
+    plan = vc._plan(good[0], good[1], 5, HW, None, good[2])
+    assert vc._plan(good[0], good[1], 5, list(HW), None, good[2]) is plan
+    assert plan.shape == (t, 5, *HW) and plan.direct.T == t
+    with pytest.raises(ValueError) as again:
+        vc._plan(events, count, 5, HW, None, layout)
+    assert str(again.value) == str(first.value)
+    with pytest.raises(ValueError, match="not supported"):
+        vc._plan(good[0], good[1], 5, HW, "high", good[2])
+
+
+def test_check_cache_keys_precision_and_type_codes(cpu_checks):
+    """One plan per key: each precision and each wire has its own, with
+    the type codes and the ``_DirectPlan`` the kernels take."""
+    events, count = split_call(first_windows("compact", 1))
+    hi = vc._plan(events, count, 5, HW, None, None)
+    assert vc._plan(events, count, 5, HW, "highest", None) is hi
+    lo = vc._plan(events, count, 5, HW, "default", None)
+    assert lo is not hi and (hi.bf16, lo.bf16) == (False, True)
+    assert hi.codes == (1, 1, 0)  # uint8 coords, uint16 ts, int8 ps
+    d = lo.direct
+    assert (d.T, d.E, d.B, d.H, d.W, d.compact4, d.bf16) == (1, 64, 5, *HW,
+                                                              0, 1)
+    assert (d.coord_type, d.ts_type, d.pol_type) == hi.codes
+    assert d.u16_scale == np.float32(4 / 65535.0)
+    packed = first_windows("compact4", 1)
+    c4 = vc._plan((packed["ev"],), packed["count"], 5, HW, None, LAYOUT)
+    assert (c4.direct.compact4, c4.direct.idx_bits, c4.direct.ts_bits) == (
+        1, *LAYOUT)
+    assert len(vc._plans) == 3

@@ -306,3 +306,50 @@ def test_int64_accumulation_matches_jax(precision):
     np.testing.assert_allclose(got, k2, atol=ATOL)
     if not bf16:
         np.testing.assert_allclose(got, jax_windows(*args), atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# one window as a stream's push packs it (T = 1: the CUDA direct path)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("wire", ["f32", "compact", "compact4"])
+def test_serve_window_matches_pallas_k1(wire, precision):
+    """A window packed by ``serve._pack_window`` on each wire a stream
+    takes ((1, E) buffers), through ``voxelize_windows``, against the JAX
+    K1 (``voxelize`` in interpret mode) for HIGHEST and K2 at DEFAULT for
+    the bf16 factors, on the same buffers (compact4 decoded by the JAX
+    package)."""
+    from evreal_tpu_torch import serve
+    from evreal_tpu_torch.data.packing import bucket_capacity, wire_dtypes
+
+    rng = np.random.default_rng(14)
+    n = 1500
+    xs = rng.integers(0, W, n).astype(np.int16)
+    ys = rng.integers(0, H, n).astype(np.int16)
+    ts = np.sort(rng.uniform(2.0, 2.03, n))  # absolute, as a client pushes
+    ps = rng.integers(0, 2, n).astype(np.uint8)  # on-disk {0, 1}
+    host = serve._pack_window(xs, ys, ts, ps, capacity=bucket_capacity(n),
+                              dtypes=wire_dtypes(wire, True, (H, W)),
+                              resolution=(H, W))
+    assert host["count"].shape == (1,) and int(host["count"][0]) == n
+    got = tvox.voxelize_windows({k: torch.from_numpy(v)
+                                 for k, v in host.items()}, B, (H, W),
+                                precision=precision).numpy()
+    if "ev" in host:
+        jx, jy, jt, jp = (np.asarray(a) for a in decode_compact4(
+            host["ev"][0], (H, W)))
+    else:
+        jx, jy, jt, jp = (host[k][0] for k in ("xs", "ys", "ts", "ps"))
+    jp = jp.astype(np.float32)
+    if precision == "highest":
+        want = np.asarray(vox_pallas_k1(
+            jx, jy, jt, jp, np.int32(n), num_bins=B, sensor_size=(H, W),
+            interpret=True))[None]
+    else:
+        want = np.asarray(voxelize_pallas_windows(
+            jx[None], jy[None], jt[None], jp[None], host["count"], B, (H, W),
+            interpret=True, precision=jax.lax.Precision.DEFAULT))
+    assert got.shape == (1, B, H, W)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    assert np.abs(want).max() > 0.5
