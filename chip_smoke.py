@@ -181,7 +181,33 @@ Phases, each printing one JSON line:
    max|g| of the meshless one; ms per step of each); ``cost_analysis`` FLOPs of the
    E2VID f32 lockstep chunk and its MFU against the card's dense bf16
    peak from the chunk's device busy time;
-12. the ``kernels`` line: per ported kernel its launches on its path (and
+12. native — the host side of the main path: the native event packer
+   (``evreal_tpu_torch/native/packer.cpp``, built from the checkout at the
+   start of the run with the system C++ compiler; its build seconds and
+   whether the build was cached) bit-equal to the port's numpy packer
+   (``EVREAL_NATIVE=0``) at the main path's pack calls on this machine's
+   host: the single path's T = 32 f32 chunk, the 16 x 32 lockstep chunk
+   on compact4 into pooled views over the previous chunk
+   (``out_zeroed=False``), a ``--batch 4 --chunk-t 8`` training batch, the
+   color path's T = 16 at 260 x 346, and the compact wire with uint8
+   (180 x 240) and int16 (260 x 346) coordinates, each timed in turns
+   (host ms per chunk, median of 5); E2VID single f32 and 16-lane bf16
+   compact4 lockstep through ``evaluate`` with ``EVREAL_NATIVE`` unset
+   and ``=0`` in turns, 3 runs each (ms/frame, the trees byte-equal, the
+   native pack calls counted from 0: one per chunk and lane with the
+   default, none with ``=0``), and 2 ``train_cli`` steps (one native pack
+   per sampled chunk); ``EVREAL_PRECISION=high`` against ``highest`` in
+   turns on the single f32 E2VID run and the color run (TF32 seen on in
+   every convolution of the model stage under ``high``, off under
+   ``highest``, off again after each run; score rows, or color frames
+   (max, mean, share over 3 grey levels), of ``high`` against
+   ``highest``; ms/frame); ``fastest`` contained as the JAX package
+   contains it (f32: the dataset fails in its containment, no frame
+   written; bf16: each metric dropped at runtime, frames written);
+   ``EVREAL_PROFILE`` over a 32-window run under ``EVREAL_PRECISION=high``:
+   one Chrome trace naming the voxelizer's kernels and a cuDNN
+   convolution (and how many convolution kernels are TF32 ones);
+13. the ``kernels`` line: per ported kernel its launches on its path (and
    per method and path in the methods, eval-config, metrics, serve, train
    and mesh phases), error and times beside its bound, its serve shapes,
    its training launch and a mesh shard's launch; K1 (the direct path)
@@ -3370,6 +3396,376 @@ def phase_mesh(torch, vc, vox, work, card, device="cuda"):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the native packer, EVREAL_PRECISION and EVREAL_PROFILE
+# ---------------------------------------------------------------------------
+
+PACK_ROUNDS = 5       # host ms per chunk: medians of rounds in turns
+NATIVE_RUNS = ("native", "numpy", "numpy", "native", "native", "numpy")
+PROFILE_WINDOWS = 32  # the EVREAL_PROFILE run: one chunk of phase 4's
+
+
+def pack_chunks(shape, way):
+    """Pack one of ``phase_native``'s shapes with the native packer
+    (``EVREAL_NATIVE`` unset) or numpy (``=0``); returns the buffers."""
+    from evreal_tpu_torch.data import pack_windows
+
+    with env(EVREAL_NATIVE=None if way == "native" else "0"):
+        if shape["kind"] == "train":
+            return [pack_windows(seq, idxs)[0]
+                    for seq, idxs in shape["chunks"]]
+        pool = shape["pool"]()
+        for lanes in shape["chunks"]:  # each chunk over the last one's
+            if shape["lanes"]:
+                pool["count"][:] = 0  # harness/batched.py's dispatch
+            for j, (seq, idxs) in enumerate(lanes):
+                pack_windows(seq, idxs, capacity=shape["capacity"],
+                             out={k: (v[j] if shape["lanes"] else v)[
+                                 :len(idxs)] for k, v in pool.items()},
+                             out_zeroed=False)
+        return [pool]
+
+
+def native_shapes(work, eval_root):
+    """The main path's pack calls, by the shapes and buffers each path
+    gives the packer: {label: shape}."""
+    from evreal_tpu_torch.data import Sequence, plan_capacity
+    from evreal_tpu_torch.data.packing import alloc_buffers, wire_dtypes
+
+    b = ECD["b"]
+    syn = Sequence(os.path.join(work, "data", "SYN", "seq0"), num_bins=b)
+    lock = [Sequence(os.path.join(work, "data", "LOCK", f"seq{j:02d}"),
+                     num_bins=b) for j in range(N_LANES)]
+    csyn = Sequence(os.path.join(eval_root, "data", "CSYN", "seq0"),
+                    num_bins=b)
+    train = [Sequence(os.path.join(work, "train", "data", f"seq{j}"),
+                      num_bins=b) for j in range(TRAIN_SEQS)]
+    rng = np.random.default_rng(0)
+    train_chunks = []
+    for _ in range(TRAIN_BATCH):  # train_cli.sample_batch's draws
+        seq = train[rng.integers(len(train))]
+        start = int(rng.integers(max(len(seq) - TRAIN_CHUNK_T, 1)))
+        train_chunks.append((seq, list(range(start, start + TRAIN_CHUNK_T))))
+
+    def single(seq, t, wire):
+        cap = plan_capacity(m["event_count"] for m in seq.windows())
+        dtypes = wire_dtypes(wire, True, seq.sensor_resolution)
+        return {"kind": "pool", "lanes": False, "wire": wire,
+                "capacity": cap,
+                "windows": t, "sensor": list(seq.sensor_resolution),
+                "dtypes": {k: np.dtype(v).name for k, v in dtypes.items()},
+                "pool": lambda: alloc_buffers((t,), cap, dtypes),
+                "chunks": [[(seq, list(range(k * t, (k + 1) * t)))]
+                           for k in range(2)]}
+
+    lock_cap = plan_capacity(m["event_count"] for s in lock
+                             for m in s.windows())
+    lock_dtypes = wire_dtypes("compact4", True, lock[0].sensor_resolution)
+    return {
+        "single_f32_T32": single(syn, CHUNK_T, "f32"),
+        "lockstep_compact4_16x32": {
+            "kind": "pool", "lanes": True, "wire": "compact4",
+            "capacity": lock_cap,
+            "windows": N_LANES * CHUNK_T,
+            "sensor": list(lock[0].sensor_resolution),
+            "dtypes": {k: np.dtype(v).name for k, v in lock_dtypes.items()},
+            "pool": lambda: alloc_buffers((N_LANES, CHUNK_T), lock_cap,
+                                          lock_dtypes),
+            "chunks": [[(s, list(range(k * CHUNK_T, (k + 1) * CHUNK_T)))
+                        for s in lock] for k in range(2)]},
+        "train_batch_4x8_f32": {
+            "kind": "train", "wire": "f32", "windows": TRAIN_BATCH
+            * TRAIN_CHUNK_T, "sensor": list(train[0].sensor_resolution),
+            "chunks": train_chunks},
+        "color_T16_260x346_f32": single(csyn, COLOR_CHUNK_T, "f32"),
+        "compact_u8_T32": single(syn, CHUNK_T, "compact"),
+        "compact_i16_T16_260x346": single(csyn, COLOR_CHUNK_T, "compact"),
+    }
+
+
+def tree_digest(base):
+    """{relative path: sha256 of the file's bytes} of a tree."""
+    import hashlib
+
+    out = {}
+    for dirpath, _, files in os.walk(base):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, base)] = hashlib.sha256(
+                    f.read()).hexdigest()
+    return out
+
+
+def native_evaluate(native, vc, label, dataset, config, switches, device,
+                    tag):
+    """One ``evaluate`` of E2VID with its stdout captured (no contained
+    exception), the native pack calls and the voxelizer's launches counted
+    from 0; its output tree moved to ``outputs_native/<tag>``. Returns
+    (ms/frame, wall s, pack calls, launches, tree dir)."""
+    native.reset_pack_calls()
+    _, launches, ms, wall_s, _ = capture_evaluate(
+        vc, ["E2VID"], config, dataset, label, device, switches)
+    calls = dict(native.pack_calls)
+    dst = os.path.join("outputs_native", tag)
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    os.rename(os.path.join("outputs", config, dataset), dst)
+    return ms, wall_s, calls, launches, dst
+
+
+def phase_native(torch, vc, work, card, build_info, device="cuda"):
+    """The native event packer (``evreal_tpu_torch/native/packer.cpp``),
+    ``EVREAL_PRECISION`` and ``EVREAL_PROFILE`` on the card's machine."""
+    import io
+    import shutil
+    from contextlib import redirect_stdout
+
+    from evreal_tpu_torch import native
+    from evreal_tpu_torch.harness.runner import evaluate
+
+    t_phase = time.perf_counter()
+    eval_root = os.path.join(work, "eval_configs")
+    result = {"phase": "native", "card": card, "build": build_info}
+
+    # bit-equality and host ms per chunk at the main path's shapes
+    shapes = native_shapes(work, eval_root)
+    pack = {}
+    for label, shape in shapes.items():
+        got = {way: pack_chunks(shape, way) for way in ("native", "numpy")}
+        equal = all(np.array_equal(a[k], b[k]) and a[k].dtype == b[k].dtype
+                    for a, b in zip(got["native"], got["numpy"]) for k in a)
+        check(equal, f"native packer vs numpy at {label}: not bit-equal")
+        native.reset_pack_calls()
+        pack_chunks(shape, "native")
+        calls = sum(native.pack_calls.values())
+        check(calls == sum(len(c) if shape["kind"] == "pool" else 1
+                           for c in shape["chunks"]),
+              f"{label}: {calls} native pack calls")
+        n_chunks = len(shape["chunks"]) if shape["kind"] == "pool" else 1
+        times = {"native": [], "numpy": []}
+        for r in range(PACK_ROUNDS):
+            for way in (("native", "numpy") if r % 2 == 0
+                        else ("numpy", "native")):
+                t0 = time.perf_counter()
+                pack_chunks(shape, way)
+                times[way].append((time.perf_counter() - t0) * 1e3
+                                  / n_chunks)
+        ms = {w: float(np.median(v)) for w, v in times.items()}
+        pack[label] = {k: shape[k] for k in ("wire", "windows", "sensor")
+                       if k in shape}
+        pack[label].update(
+            capacity=shape.get("capacity"), bit_equal=True,
+            native_calls_per_pack=calls, host_ms_per_chunk=ms,
+            host_ms_per_chunk_rounds={w: [float(x) for x in v]
+                                      for w, v in times.items()},
+            numpy_over_native=ms["numpy"] / ms["native"])
+    result["pack"] = pack
+
+    # end to end: single f32 and 16-lane bf16 compact4 lockstep with the
+    # native packer and EVREAL_NATIVE=0, in turns; the trees byte-equal
+    os.chdir(work)
+    n_chunks = -(-N_WINDOWS // CHUNK_T)
+    e2e = {}
+    for label, dataset, switches, want in (
+            ("single_f32", "SYN", dict(EVREAL_DTYPE=None, EVREAL_WIRE=None),
+             {"f32": n_chunks, "compact": 0, "compact4": 0}),
+            ("lockstep_bf16_compact4", "LOCK",
+             dict(EVREAL_DTYPE="bfloat16", EVREAL_WIRE="compact4"),
+             {"f32": 0, "compact": 0, "compact4": N_LANES * n_chunks})):
+        runs = []
+        for k, way in enumerate(NATIVE_RUNS):
+            ms, wall_s, calls, launches, dst = native_evaluate(
+                native, vc, f"{label} {way}", dataset, "std",
+                dict(switches, EVREAL_NATIVE=None if way == "native"
+                     else "0", EVREAL_PRECISION=None), device,
+                f"{label}_{k}_{way}")
+            check(calls == (want if way == "native"
+                            else dict.fromkeys(native.WIRES, 0)),
+                  f"{label} {way}: native pack calls {calls}")
+            runs.append({"way": way, "ms_per_frame_steady": ms,
+                         "wall_s": wall_s, "native_pack_calls": calls,
+                         "voxelize_launches": launches, "tree": dst})
+        trees = [tree_digest(r.pop("tree")) for r in runs]
+        check(trees[0] == trees[1] and len(trees[0]) > N_WINDOWS,
+              f"{label}: the native and EVREAL_NATIVE=0 trees differ "
+              f"({sum(trees[0].get(p) != v for p, v in trees[1].items())} "
+              f"files)")
+        by_way = {w: [r["ms_per_frame_steady"] for r in runs
+                      if r["way"] == w] for w in ("native", "numpy")}
+        e2e[label] = {"runs": runs, "trees_byte_equal": True,
+                      "trees_all_four_equal": all(t == trees[0]
+                                                  for t in trees),
+                      "files": len(trees[0]),
+                      "ms_per_frame": by_way,
+                      "ms_per_frame_delta_numpy_minus_native": float(
+                          np.mean(by_way["numpy"])
+                          - np.mean(by_way["native"]))}
+    # the training path: train_cli's sampled chunks through the packer
+    native.reset_pack_calls()
+    train_cli_run(torch, [
+        "--data", os.path.join(work, "train", "data"), "--batch",
+        str(TRAIN_BATCH), "--chunk-t", str(TRAIN_CHUNK_T), "--device",
+        device, "--arch", "firenet", "--steps", "2", "--out",
+        os.path.join(work, "train_native")], torch.cuda.synchronize)
+    train_calls = dict(native.pack_calls)
+    check(train_calls == {"f32": 2 * TRAIN_BATCH, "compact": 0,
+                          "compact4": 0},
+          f"train_cli: native pack calls {train_calls}")
+    e2e["train_firenet_2_steps"] = {"native_pack_calls": train_calls}
+    result["end_to_end"] = e2e
+
+    # EVREAL_PRECISION: TF32 inside the model stage under "high", off
+    # after it; rows and ms/frame against "highest"; "fastest" contained
+    seen = []
+
+    def record(module, args, out):
+        if isinstance(module, torch.nn.Conv2d):
+            seen.append((torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32))
+
+    saved_flags = (torch.backends.cudnn.allow_tf32,
+                   torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    precision = {}
+    try:
+        for label, dataset, config, root in (
+                ("single_f32", "SYN", "std", work),
+                ("color_f32", "CSYN", "color", eval_root)):
+            os.chdir(root)
+            runs, flags_in = [], {}
+            for k, prec in enumerate(("high", "highest", "highest", "high")):
+                seen.clear()
+                hook = torch.nn.modules.module.register_module_forward_hook(
+                    record)
+                try:
+                    ms, wall_s, _, _, dst = native_evaluate(
+                        native, vc, f"{label} {prec}", dataset, config,
+                        dict(EVREAL_DTYPE=None, EVREAL_WIRE=None,
+                             EVREAL_CHUNK_T=None, EVREAL_PRECISION=prec),
+                        device, f"precision_{label}_{k}_{prec}")
+                finally:
+                    hook.remove()
+                after = (torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32)
+                want = (prec == "high",) * 2
+                check(seen and set(seen) == {want}, f"{label} "
+                      f"EVREAL_PRECISION={prec}: TF32 flags {set(seen)} in "
+                      f"the model stage, want {want}")
+                check(after == (False, False), f"{label} {prec}: TF32 "
+                      f"flags {after} after the run, want them off")
+                flags_in[prec] = list(want)
+                runs.append({"precision": prec, "ms_per_frame_steady": ms,
+                             "wall_s": wall_s, "dir": dst})
+            by_prec = {p: [r for r in runs if r["precision"] == p]
+                       for p in ("high", "highest")}
+            hw = COLOR_HW if config == "color" else (ECD["h"], ECD["w"])
+            if config == "color":
+                frames = {p: check_color_tree(os.path.join(
+                    v[0]["dir"], "seq0", "E2VID"), COLOR_WINDOWS, hw)
+                    for p, v in by_prec.items()}
+                d = np.abs(np.stack(frames["high"]).astype(int)
+                           - np.stack(frames["highest"]).astype(int))
+                diff = {"frames_max_grey_levels": int(d.max()),
+                        "frames_mean_grey_levels": float(d.mean()),
+                        "pixels_over_3_levels_share": float((d > 3).mean())}
+            else:
+                rows = {p: check_tree(os.path.join(v[0]["dir"], "seq0",
+                                                   "E2VID"), N_WINDOWS,
+                                      hw)[0] for p, v in by_prec.items()}
+                diff = {f"{m}_rows_max_abs": max(
+                    abs(rows["high"][m][i] - rows["highest"][m][i])
+                    for i in rows["high"][m]) for m in ("mse", "ssim")}
+            precision[label] = {
+                "tf32_in_model_stage": flags_in, "flags_after": [False,
+                                                                 False],
+                "ms_per_frame": {p: [r["ms_per_frame_steady"] for r in v]
+                                 for p, v in by_prec.items()},
+                "high_vs_highest": diff}
+        # "fastest": the JAX package's containment, by dtype
+        os.chdir(work)
+        fastest = {}
+        for dtype, want in (("float32", "Exception while evaluating method "
+                             "E2VID on SYN dataset:"),
+                            ("bfloat16", "Metric mse failed at runtime; "
+                             "dropping it for the rest of this sequence")):
+            buf = io.StringIO()
+            vc.reset_launches()
+            with env(EVREAL_PRECISION="fastest", EVREAL_DTYPE=dtype,
+                     EVREAL_WIRE=None), redirect_stdout(buf):
+                evaluate(["E2VID"], ["std"], ["SYN"], ["mse", "ssim"],
+                         device=device)
+            lines = [ln for ln in buf.getvalue().splitlines()
+                     if "EVREAL_PRECISION='fastest'" in ln
+                     or "Exception while" in ln or "failed at runtime" in ln]
+            frames = [n for n in os.listdir(os.path.join(
+                "outputs", "std", "SYN", "seq0", "E2VID"))
+                if n.endswith(".png")]
+            check(any(want in ln for ln in lines) and any(
+                "EVREAL_PRECISION='fastest': expected highest|high|default"
+                in ln for ln in lines),
+                f"EVREAL_PRECISION=fastest ({dtype}): lines {lines[:4]}")
+            check(bool(frames) == (dtype == "bfloat16"),
+                  f"EVREAL_PRECISION=fastest ({dtype}): {len(frames)} "
+                  f"frames written")
+            shutil.rmtree(os.path.join("outputs", "std", "SYN"))
+            fastest[dtype] = {"lines": [re.sub(r"\x1b\[[0-9;]*m", "", ln)
+                                        for ln in lines[:4]],
+                              "frames": len(frames),
+                              "voxelize_launches": dict(
+                                  vc.launches_by_precision)}
+        precision["fastest"] = fastest
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved_flags
+    result["precision"] = precision
+
+    # EVREAL_PROFILE: one short run's trace names the voxelizer's kernels
+    # and a cuDNN convolution; under EVREAL_PRECISION=high, whose
+    # convolutions should then be cuDNN's TF32 kernels
+    os.chdir(work)
+    write_config(work, "dataset", "SYN_PROFILE", {
+        "root_path": os.path.join(work, "data", "SYN"),
+        "sequences": {"seq0": {"end_time_s": cut_after(
+            os.path.join(work, "data", "SYN", "seq0"), PROFILE_WINDOWS,
+            ECD["b"])}}})
+    trace_dir = os.path.join(work, "profile_trace")
+    t0 = time.perf_counter()
+    with env(EVREAL_PROFILE=trace_dir, EVREAL_DTYPE=None, EVREAL_WIRE=None,
+             EVREAL_PRECISION="high"), redirect_stdout(io.StringIO()):
+        evaluate(["E2VID"], ["std"], ["SYN_PROFILE"], ["mse", "ssim"],
+                 device=device)
+    profile_s = time.perf_counter() - t0
+    traces = [n for n in os.listdir(trace_dir)
+              if n.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"EVREAL_PROFILE wrote {traces}")
+    path = os.path.join(trace_dir, traces[0])
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    cpu_ops = {e["name"] for e in events if e.get("cat") == "cpu_op"}
+    vox_kernels = sorted({m.group(0) for k in kernels for m in [
+        re.search(r"voxelize_\w+_kernel", k)] if m})
+    conv_kernels = sorted(k for k in kernels if re.search(
+        r"conv|fprop|xmma|implicit|winograd|cudnn", k, re.I))
+    check(vox_kernels and "aten::cudnn_convolution" in cpu_ops
+          and conv_kernels, f"EVREAL_PROFILE trace: voxelizer kernels "
+          f"{vox_kernels}, cudnn ops {'aten::cudnn_convolution' in cpu_ops}"
+          f", conv kernels {conv_kernels[:3]}")
+    result["profile"] = {"windows": PROFILE_WINDOWS, "wall_s": profile_s,
+                         "trace_mb": os.path.getsize(path) / 2**20,
+                         "events": len(events), "kernels": len(kernels),
+                         "voxelize_kernels": vox_kernels,
+                         "precision": "high",
+                         "conv_kernels": [k[:90] for k in conv_kernels[:3]],
+                         "tf32_conv_kernels": sum("tf32" in k.lower()
+                                                  for k in conv_kernels),
+                         "conv_kernel_names": len(conv_kernels)}
+    result["phase_s"] = time.perf_counter() - t_phase
+    emit(result)
+    return result
+
+
 def main():
     import torch
 
@@ -3395,6 +3791,10 @@ def main():
     info = vc.build()
     emit({"phase": "build", "seconds": info["seconds"],
           "cached": info["cached"], "ptxas": info["log"].splitlines()})
+    # the native packer's build, timed here (the main path would build it
+    # at its first pack); phase 12 reports it
+    from evreal_tpu_torch import native
+    native_build = native.build()
 
     # the phases before the mesh phase run on one card whatever the host
     # holds: the eval mesh is off until phase_mesh sets it
@@ -3413,6 +3813,7 @@ def main():
             served = phase_serve(torch, vc, vox, work, smi)
             trained = phase_train(torch, vc, vox, work, smi)
             meshed = phase_mesh(torch, vc, vox, work, smi)
+            phase_native(torch, vc, work, smi, native_build)
         finally:
             os.chdir(cwd)
     by_method = methods["launches"]

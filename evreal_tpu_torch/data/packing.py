@@ -1,8 +1,12 @@
 """Pack variable-length event windows into fixed-capacity ``(T, E)`` buffers.
 
-The port's own copy of the numpy path of ``evreal_tpu/data/packing.py``
-(the native C++ packer is not carried over; the JAX package's numpy
-fallback, which this is, produces bit-identical buffers).
+The port's own copy of ``evreal_tpu/data/packing.py``. ``pack_windows``
+packs with the native C++ packer (``native/packer.cpp``) when the events
+are the memmap layout it reads (f64 timestamps, int16 ``(N, 2)``
+coordinates, uint8 polarity, each C-contiguous) and the buffers its wire
+writes; other inputs, and every input under ``EVREAL_NATIVE=0``, take the
+numpy loop, which gives bit-identical buffers and is the plain version
+the tests hold the native packer to.
 
 Windows have wildly varying event counts, so the events of a chunk of T
 windows are packed into ``(T, E)`` arrays with a per-window ``count``;
@@ -27,6 +31,8 @@ shift, preserving the reference's precision behavior.
 import os
 
 import numpy as np
+
+from evreal_tpu_torch import native
 
 _MIN_CAPACITY = 2048
 U16_TS_SCALE = 65535.0
@@ -189,6 +195,39 @@ def plan_capacity(counts, tail_frac=0.01, min_ratio=4, minimum=_MIN_CAPACITY):
     return base if cap_all >= base * min_ratio else cap_all
 
 
+def _native_eligible(seq):
+    """Whether the native packer reads ``seq``'s events: f64 ``t``, int16
+    ``(N, 2)`` ``xy`` and uint8 ``p``, each C-contiguous."""
+    try:
+        return (seq.t.dtype == np.float64 and seq.t.ndim == 1
+                and seq.t.flags["C_CONTIGUOUS"]
+                and seq.xy.dtype == np.int16 and seq.xy.ndim == 2
+                and seq.xy.shape[1] == 2 and seq.xy.flags["C_CONTIGUOUS"]
+                and seq.p.dtype == np.uint8 and seq.p.ndim == 1
+                and seq.p.flags["C_CONTIGUOUS"])
+    except AttributeError:
+        return False
+
+
+def _native_writes(out, resolution):
+    """Whether the native packer writes ``out``: the dtypes of one wire,
+    every buffer C-contiguous, and a compact4 layout for the sensor when
+    the wire is compact4."""
+    if "ev" in out:
+        want = {"ev": np.uint32}
+        if compact4_layout(resolution) is None:
+            return False
+    else:
+        xy = np.uint8 if out["xs"].dtype == np.uint8 else np.int16
+        want = {"xs": xy, "ys": xy, "ps": np.int8,
+                "ts": (np.uint16 if out["ts"].dtype == np.uint16
+                       else np.float32)}
+    want["count"] = np.int32
+    return set(out) == set(want) and all(
+        out[k].dtype == d and out[k].flags["C_CONTIGUOUS"]
+        for k, d in want.items())
+
+
 def pack_windows(seq, indices, capacity=None, out=None, metas=None,
                  out_zeroed=True, wire="f32"):
     """Pack the given window indices of a Sequence.
@@ -198,7 +237,10 @@ def pack_windows(seq, indices, capacity=None, out=None, metas=None,
     count: (T,)} or {ev: (T, E); count} — and metas the ``seq.window``
     dicts. Pass ``out`` to pack in place (the wire is then read from its
     dtypes) and ``out_zeroed=False`` when those buffers are reused, so row
-    tails get cleared of stale events."""
+    tails get cleared of stale events (the native packer always clears
+    them). The native packer runs when ``native.enabled()``, the events
+    are eligible and it writes ``out``'s dtypes (module docstring); else
+    the numpy loop."""
     if metas is None:
         metas = [seq.window(i) for i in indices]
     max_count = max((m["event_count"] for m in metas), default=0)
@@ -211,17 +253,35 @@ def pack_windows(seq, indices, capacity=None, out=None, metas=None,
     int_coords = np.issubdtype(seq.xy.dtype, np.integer)
     resolution = getattr(seq, "sensor_resolution", None)
 
+    native_ok = native.enabled() and _native_eligible(seq)
     if out is None:
+        # the native packer writes every slot, so its buffers start empty
         out = alloc_buffers((t,), capacity,
-                            wire_dtypes(wire, int_coords, resolution))
-        zeroed = True
+                            wire_dtypes(wire, int_coords, resolution),
+                            alloc=np.empty if native_ok else np.zeros)
+        zeroed = not native_ok
     else:
+        # every buffer's shape, not just one: the native packer writes
+        # rows at stride `capacity` with no bounds of its own
         for k in out:
             want = (t,) if k == "count" else (t, capacity)
             if out[k].shape != want:
                 raise ValueError(f"buffer {k}: shape {out[k].shape}, "
                                  f"want {want}")
         zeroed = bool(out_zeroed)
+
+    if native_ok and _native_writes(out, resolution):
+        idx0 = np.asarray([m["idx0"] for m in metas], np.int64)
+        idx1 = np.asarray([m["idx1"] for m in metas], np.int64)
+        if "ev" in out:
+            native.pack_compact4(seq.t, seq.xy, seq.p, idx0, idx1,
+                                 capacity, resolution, out)
+        elif out["ts"].dtype == np.uint16:
+            native.pack_compact(seq.t, seq.xy, seq.p, idx0, idx1, capacity,
+                                out["xs"].dtype == np.uint8, out)
+        else:
+            native.pack_i16(seq.t, seq.xy, seq.p, idx0, idx1, capacity, out)
+        return out, metas
 
     for row, meta in enumerate(metas):
         n = meta["event_count"]

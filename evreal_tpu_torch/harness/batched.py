@@ -13,7 +13,8 @@ Per chunk of ``chunk_t`` windows:
     (N, T, E) event buffers -> device -> ONE voxelize_windows launch over
     the (N * T, E) view -> input norm (f32) -> serving dtype -> pad -> per
     window t: one model step of batch N -> f32 -> crop -> post-norm per
-    image -> clip -> u8 and the (N, T) scores (f32, TF32 off): the
+    image -> clip -> u8 and the (N, T) scores (f32, TF32 off unless
+    ``EVREAL_PRECISION`` says otherwise): the
     full-reference metrics on the lanes with reference frames, the
     no-reference ones on every lane
 

@@ -5,10 +5,11 @@ sends same-resolution sequences to the lockstep batched runner
 
 Per chunk of ``chunk_t`` windows:
 
-    packed (T, E) event buffers -> device -> ONE voxelize_windows launch
-    -> input norm (f32) -> cast to the serving dtype -> pad -> per window:
-    model step -> f32 -> crop -> post-norm -> clip -> u8 quantization and
-    the chunk's metrics (always f32, TF32 off): full-reference ones against
+    packed (T, E) event buffers (the native packer) -> device -> ONE
+    voxelize_windows launch -> input norm (f32) -> cast to the serving
+    dtype -> pad -> per window: model step -> f32 -> crop -> post-norm ->
+    clip -> u8 quantization and the chunk's metrics (always f32, TF32 off
+    unless ``EVREAL_PRECISION`` says otherwise): full-reference ones against
     the reference frames, no-reference ones alone (a sequence without
     reference frames has only those), device metrics as one batch, MANIQA
     a frame at a time, host metrics (NIQE, BRISQUE, pyiqa) on one host
@@ -41,9 +42,12 @@ The JAX package's switches, with its parsing and errors:
 ``EVREAL_DTYPE`` (float32 | bfloat16 serving mode), ``EVREAL_WIRE``
 (f32 | compact | compact4, checked once at the start of ``evaluate``),
 ``EVREAL_VOXEL_PRECISION`` (highest | default; "high" cannot be honored by
-the voxelizer and raises), ``EVREAL_BATCHED`` (lockstep groups, on unless
-"0"), ``EVREAL_BATCH_N`` (group width cap) and ``EVREAL_CHUNK_T``; the
-last two are parsed at import, as there.
+the voxelizer and raises), ``EVREAL_PRECISION`` (highest | high | default
+for the f32 stages: ``utils.matmul_precision_ctx``, read at each stage),
+``EVREAL_NATIVE`` ("0": pack with numpy, ``data/packing.py``),
+``EVREAL_PROFILE`` (a trace directory, ``profile_ctx``), ``EVREAL_BATCHED``
+(lockstep groups, on unless "0"), ``EVREAL_BATCH_N`` (group width cap) and
+``EVREAL_CHUNK_T``; the last two are parsed at import, as there.
 
 Every method config runs (``models/``, weights from a converted ``.npz``
 or a reference ``.pth``). A lockstep group shards its lanes over the eval
@@ -109,7 +113,7 @@ from evreal_tpu_torch.ops.voxelize import voxelize_windows
 from evreal_tpu_torch.parallel.mesh import canonical_device, replica_on
 from evreal_tpu_torch.utils import (
     U8_LUT,
-    f32_parity,
+    matmul_precision_ctx,
     resolve_device,
     upload,
 )
@@ -139,13 +143,6 @@ def cast_model(model, dtype):
     given one cast copy share it), else a copy rounded to ``dtype`` (round
     to nearest even, as the JAX package's ``cast_params``)."""
     return replica_on(model, next(model.parameters()).device, dtype)
-
-
-def precision_ctx(dtype):
-    """f32 parity (TF32 off) for f32 stages; bf16 mode keeps the backend's
-    defaults (``matmul_precision_ctx``, evreal_tpu/harness/runner.py:244)."""
-    return f32_parity() if dtype == torch.float32 \
-        else contextlib.nullcontext()
 
 
 def voxel_precision_choice(dtype):
@@ -231,7 +228,7 @@ class MethodRunner:
         """Run the model over ``vox`` (N, n, B, H, W), window by window,
         all lanes in one step. Returns (state, images (N, n, H, W) in f32,
         cropped, before post-norm)."""
-        with precision_ctx(self.dtype):
+        with matmul_precision_ctx(self.dtype):
             vox = self.crop.pad(vox)
             imgs = []
             for i in range(vox.shape[1]):
@@ -286,15 +283,20 @@ class MethodRunner:
         return count_flops(chunk, self.model, state, vox), None
 
     @torch.no_grad()
-    def metric_scores(self, specs, clipped, refs=None, on_error=None):
+    def metric_scores(self, specs, clipped, refs=None, on_error=None,
+                      probe=False):
         """{name: scores on the device, shaped like ``clipped``'s leading
         dims} of the frames ``clipped`` (..., H, W): full-reference specs
         against ``refs`` (the same shape, f32 or uint8), no-reference ones
-        alone. In f32 with TF32 off whatever the serving dtype (the JAX
-        package pins HIGHEST around its metrics). Host specs share one host
-        copy of the frames. A spec that raises is left out after
-        ``on_error(spec, exc)`` when that is given; else the error
-        propagates."""
+        alone. In f32 under the f32 precision context
+        (``matmul_precision_ctx``: TF32 off unless ``EVREAL_PRECISION``
+        says otherwise) whatever the serving dtype, as the JAX package
+        scores its metrics. Host specs share one host copy of the frames.
+        A spec that raises, a malformed ``EVREAL_PRECISION`` included, is
+        left out after ``on_error(spec, exc)`` when that is given; else the
+        error propagates. ``probe``: a shape check (``usable_metrics``)
+        scored outside the precision context, as the JAX package validates
+        its metrics outside it."""
         lead, hw = clipped.shape[:-2], tuple(clipped.shape[-2:])
         frames = {"imgs": clipped.reshape((-1,) + hw)}
         if refs is not None:
@@ -303,26 +305,27 @@ class MethodRunner:
             frames["refs"] = refs.reshape((-1,) + hw)
         host = {}
         out = {}
-        with f32_parity():
-            for spec in specs:
-                keys = ("imgs",) if spec.no_ref else ("imgs", "refs")
-                args = [frames[k] for k in keys]
-                if spec.host:
-                    for k in keys:
-                        if k not in host:
-                            host[k] = frames[k].cpu().numpy()
-                    args = [host[k] for k in keys]
-                try:
+        for spec in specs:
+            keys = ("imgs",) if spec.no_ref else ("imgs", "refs")
+            args = [frames[k] for k in keys]
+            if spec.host:
+                for k in keys:
+                    if k not in host:
+                        host[k] = frames[k].cpu().numpy()
+                args = [host[k] for k in keys]
+            try:
+                with (contextlib.nullcontext() if probe
+                      else matmul_precision_ctx()):
                     got = score_batch(spec, args)
-                except Exception as exc:  # noqa: BLE001 — containment
-                    if on_error is None:
-                        raise
-                    on_error(spec, exc)
-                    continue
-                if spec.host:
-                    got = torch.from_numpy(np.asarray(got, np.float32)).to(
-                        self.device)
-                out[spec.name] = got.reshape(lead)
+            except Exception as exc:  # noqa: BLE001 — containment
+                if on_error is None:
+                    raise
+                on_error(spec, exc)
+                continue
+            if spec.host:
+                got = torch.from_numpy(np.asarray(got, np.float32)).to(
+                    self.device)
+            out[spec.name] = got.reshape(lead)
         return out
 
 
@@ -594,7 +597,7 @@ def usable_metrics(runner, specs):
     out = []
     for spec in specs:
         try:
-            runner.metric_scores([spec], probe, probe)
+            runner.metric_scores([spec], probe, probe, probe=True)
         except Exception as exc:  # noqa: BLE001 — containment
             print(color_error(f"metric {spec.name} failed at {hw}: {exc}; "
                               f"skipping"))
@@ -907,14 +910,46 @@ ALL_METHODS = ["E2VID", "E2VID+", "FireNet", "FireNet+", "SPADE-E2VID",
                "SSL-E2VID", "ET-Net", "HyperE2VID"]
 
 
+def profile_ctx(device):
+    """``EVREAL_PROFILE=<dir>``: a ``torch.profiler`` trace of what runs
+    inside (CPU activity, and the card's when ``device`` is one), written
+    on exit, a raise's too, as a Chrome trace (``*.pt.trace.json``, read by
+    Perfetto or TensorBoard) into the directory, made if absent — the JAX
+    package's ``jax.profiler`` trace of its whole ``evaluate``
+    (``evreal_tpu/harness/runner.py:1237-1250``). Unset or empty: no
+    profiler."""
+    profile_dir = os.environ.get("EVREAL_PROFILE")
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+
+
 def evaluate(method_names=None, eval_config_names=None, dataset_names=None,
              metrics=None, device=None, timings=None):
     """The reference ``evaluate`` (eval.py:413-444) on ``device`` (CUDA
     unless the caller asks for another; raises without a card), over all
     eight methods unless ``method_names`` names some. Steady ms/frame
     samples go to ``timings`` (a ``TimingLog``) when given. Returns {eval
-    config name: per-method lists of dataset trackers}."""
+    config name: per-method lists of dataset trackers}. Set
+    ``EVREAL_PROFILE=<dir>`` to trace the whole run (``profile_ctx``)."""
     device = resolve_device(device)
+    with profile_ctx(device):
+        return _evaluate(method_names, eval_config_names, dataset_names,
+                         metrics, device, timings)
+
+
+def _evaluate(method_names, eval_config_names, dataset_names, metrics,
+              device, timings):
     method_names = method_names or ALL_METHODS
     # a malformed EVREAL_WIRE fails here, not inside the per-dataset
     # containment (evreal_tpu/harness/runner.py:1255-1260)

@@ -7,7 +7,8 @@ As in the JAX package, the four half-resolution channels step as ONE
 batch-4 recurrent state and the full-resolution grayscale as a batch-1
 state (the model is batch-equivariant: the same numbers as the reference's
 five sequential passes). The chunk's windows voxelize in one launch, in
-f32 at HIGHEST (the color path never runs in bf16), with TF32 off. The
+f32 at HIGHEST (the color path never runs in bf16), with TF32 off unless
+``EVREAL_PRECISION`` says otherwise (``utils.matmul_precision_ctx``). The
 uint8 merge (``utils/color.py``) runs on the device, next to the frames,
 where the JAX package merges on the host with OpenCV.
 """
@@ -19,7 +20,7 @@ import torch
 from evreal_tpu_torch.ops.normalize import post_process_normalization_frames
 from evreal_tpu_torch.ops.pad import CropParams
 from evreal_tpu_torch.parallel.mesh import replica_on
-from evreal_tpu_torch.utils import U8_LUT, f32_parity, upload
+from evreal_tpu_torch.utils import U8_LUT, matmul_precision_ctx, upload
 from evreal_tpu_torch.utils.color import merge_channels_into_color_image
 
 # Bayer pattern slices on (H, W): reference model/model.py:54-58
@@ -77,7 +78,7 @@ class ColorRunner:
     def reconstruct(self, state, vox):
         """``vox`` (n, B, H, W) f32 -> (state, channels (n, 4, H/2, W/2)
         uint8 in ``COLOR_ORDER``, gray (n, H, W) uint8)."""
-        with f32_parity():
+        with matmul_precision_ctx():
             # even-crop before the Bayer slicing: at an odd sensor side the
             # 0::2 and 1::2 slices differ by one and could not stack (the
             # JAX package's choice, models/colornet.py:78-91)

@@ -29,7 +29,7 @@ arrays' raw C-order bytes), so a client of either package talks to a
 server of the other; ``python -m evreal_tpu_torch.serve`` runs one.
 
 Threads: the engine lock covers every dispatch (the runners flip the
-process-global TF32 flags, ``harness/runner.py:precision_ctx``, and the
+process-global TF32 flags, ``utils.matmul_precision_ctx``, and the
 voxelizer's launch counters are shared); frames are fetched outside it.
 """
 

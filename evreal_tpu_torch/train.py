@@ -16,7 +16,8 @@ is optax's stack computed in torch (``build_optimizer``): optional
 global-norm clipping, Adam or AdamW, and a constant or warmup/cosine
 learning rate read at the update count before the update.
 
-Forward and backward run in f32 with TF32 off and cuDNN's deterministic
+Forward and backward run in f32 with TF32 off (unless
+``EVREAL_PRECISION`` says otherwise) and cuDNN's deterministic
 algorithms (``training_precision``): XLA's training step is deterministic
 and uses full f32 matmuls, and a checkpointed run resumes to the same
 parameters as an uninterrupted one. On a CUDA device the step runs
@@ -56,19 +57,21 @@ from evreal_tpu_torch.parallel.mesh import (
     dp_devices,
     split_lanes,
 )
-from evreal_tpu_torch.utils import f32_parity
+from evreal_tpu_torch.utils import matmul_precision_ctx
 
 LOSS_TERMS = ("mse", "lpips", "bce")
 
 
 @contextlib.contextmanager
 def training_precision():
-    """f32 convolutions and matmuls (TF32 off) and deterministic cuDNN
-    algorithms for the duration. cuDNN reads these flags when it launches
-    a kernel, so the backward pass must run inside the context too."""
+    """The f32 precision context (``matmul_precision_ctx``: TF32 off
+    unless ``EVREAL_PRECISION`` says otherwise, as the JAX package's
+    training step takes it) and deterministic cuDNN algorithms for the
+    duration. cuDNN reads these flags when it launches a kernel, so the
+    backward pass must run inside the context too."""
     cudnn = torch.backends.cudnn
     saved = (cudnn.deterministic, cudnn.benchmark)
-    with f32_parity():
+    with matmul_precision_ctx():
         cudnn.deterministic, cudnn.benchmark = True, False
         try:
             yield

@@ -1,7 +1,8 @@
-"""Device selection, uploads, bounded downloads and the f32 parity
-precision context."""
+"""Device selection, uploads, bounded downloads and the precision
+contexts of f32 stages."""
 
 import contextlib
+import os
 
 import numpy as np
 import torch
@@ -52,20 +53,48 @@ def resolve_device(device=None):
 
 
 @contextlib.contextmanager
-def f32_parity():
-    """Full-f32 convolutions and matmuls (TF32 off) for the duration — the
-    counterpart of the JAX runner's HIGHEST matmul precision
-    (``evreal_tpu/harness/runner.py:244-267``). cuDNN convolutions default
-    to TF32 on Hopper, which drifts an E2VID rollout by about 1e-3."""
+def allow_tf32(enabled):
+    """TF32 in cuDNN convolutions and cuBLAS matmuls on or off for the
+    duration; the flags (process-global) are restored on exit, an
+    exception's too, so a nested context leaves the outer one's."""
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = enabled
+    torch.backends.cuda.matmul.allow_tf32 = enabled
     try:
         yield
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def f32_parity():
+    """Full-f32 convolutions and matmuls (TF32 off) for the duration — the
+    counterpart of the JAX runner's HIGHEST matmul precision. cuDNN
+    convolutions default to TF32 on Hopper, which drifts an E2VID rollout
+    by about 1e-3."""
+    return allow_tf32(False)
+
+
+def matmul_precision_ctx(dtype=torch.float32):
+    """Convolution and matmul precision of an f32 stage
+    (``evreal_tpu/harness/runner.py:matmul_precision_ctx``).
+
+    f32 stages pin full f32 (``f32_parity``) unless ``EVREAL_PRECISION``
+    says otherwise: highest (the default) | high | default, any other value
+    raising the JAX package's error. TF32 is Hopper's only reduced-precision
+    mode for f32 convolutions and matmuls, so both "high" (XLA's 3-pass
+    bf16) and "default" (its 1-pass bf16) map to it: TF32 on in cuDNN and
+    cuBLAS for the duration. bf16 stages keep the backend's defaults (a
+    ``nullcontext``), as in the JAX package. Raises when called, before
+    any work, as the JAX function does."""
+    if dtype == torch.float32:
+        prec = os.environ.get("EVREAL_PRECISION", "highest")
+        if prec not in ("highest", "high", "default"):
+            raise ValueError(f"EVREAL_PRECISION={prec!r}: expected "
+                             "highest|high|default")
+        return allow_tf32(prec != "highest")
+    return contextlib.nullcontext()
 
 
 def upload(arrays, device):

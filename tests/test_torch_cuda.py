@@ -375,3 +375,82 @@ def test_color_post_norm_on_card_matches_cpu(cuda_device, norm):
     got = post_process_normalization_frames(frames.to(cuda_device), norm)
     assert torch.equal(got.cpu(), post_process_normalization_frames(
         frames, norm))
+
+
+@pytest.mark.cuda
+def test_native_packer_matches_numpy_at_lockstep_shape(cuda_device, tmp_path,
+                                                       monkeypatch):
+    """The native packer on the card's host, bit-equal to the numpy path at
+    the 16-lane lockstep chunk (16 x 32 windows of 30,000 events, compact4
+    into pooled views over stale values), and the chunk it packs voxelizes
+    alike on the card."""
+    import json
+
+    from evreal_tpu_torch import native
+    from evreal_tpu_torch.data import Sequence, pack_windows
+    from evreal_tpu_torch.data.packing import alloc_buffers, wire_dtypes
+
+    rng = np.random.default_rng(11)
+    n_lanes, t, e, n = 16, 32, 30000, 36 * 30000 + 17
+    np.save(tmp_path / "events_ts.npy", np.sort(rng.uniform(0, 4.0, n)))
+    np.save(tmp_path / "events_xy.npy", np.stack(
+        [rng.integers(-2, W + 2, n), rng.integers(-2, H + 2, n)],
+        1).astype(np.int16))
+    np.save(tmp_path / "events_p.npy", rng.integers(0, 2, n).astype(np.uint8))
+    (tmp_path / "metadata.json").write_text(
+        json.dumps({"sensor_resolution": [H, W]}))
+    seq = Sequence(str(tmp_path), voxel_method={
+        "method": "k_events", "k": e, "sliding_window_w": 0})
+    dtypes = wire_dtypes("compact4", True, (H, W))
+    pools = {}
+    for way, flag in (("native", "1"), ("numpy", "0")):
+        monkeypatch.setenv("EVREAL_NATIVE", flag)
+        pool = alloc_buffers((n_lanes, t), 32768, dtypes)
+        pool["ev"][:] = 0xDEADBEEF
+        native.reset_pack_calls()
+        for j in range(n_lanes):
+            idxs = list(range(j % 3, j % 3 + t - j % 2))
+            pack_windows(seq, idxs, capacity=32768,
+                         out={k: v[j, :len(idxs)] for k, v in pool.items()},
+                         out_zeroed=False)
+        assert native.pack_calls["compact4"] == (n_lanes if flag == "1"
+                                                 else 0)
+        pools[way] = pool
+    for k in pools["native"]:
+        np.testing.assert_array_equal(pools["native"][k], pools["numpy"][k])
+    ev, count = on(cuda_device, pools["native"]["ev"].reshape(-1, 32768),
+                   pools["native"]["count"].reshape(-1))
+    layout = compact4_layout((H, W))
+    got = voxelize_cuda.voxelize_compact4(ev, count, B, (H, W), layout,
+                                          "default")
+    assert got.shape == (n_lanes * t, B, H, W) and torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+def test_precision_high_turns_tf32_on_for_a_run(cuda_device, monkeypatch):
+    """EVREAL_PRECISION=high: TF32 inside the model stage of a card run,
+    the flags as they were after it; "highest" keeps it off."""
+    from evreal_tpu_torch.harness.runner import MethodRunner
+    from evreal_tpu_torch.models import build_model, flagship_e2vid_kwargs
+
+    model = build_model("E2VIDRecurrent", flagship_e2vid_kwargs())
+    runner = MethodRunner(model, event_norm=True, post_norm="robust",
+                          height=H, width=W, num_bins=B, device=cuda_device,
+                          chunk_t=4)
+    seen = []
+    runner.model.register_forward_hook(lambda *_: seen.append((
+        torch.backends.cudnn.allow_tf32,
+        torch.backends.cuda.matmul.allow_tf32)))
+    vox = torch.rand(4, B, H, W, device=cuda_device)
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    outs = {}
+    for value, want in (("high", (True, True)), ("highest", (False, False))):
+        monkeypatch.setenv("EVREAL_PRECISION", value)
+        seen.clear()
+        outs[value] = runner.reconstruct(runner.init_state(), vox)[1]
+        assert seen == [want] * 4
+        assert (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32) == before
+    diff = (outs["high"] - outs["highest"]).abs().max().item()
+    assert diff < 0.05
