@@ -207,7 +207,17 @@ Phases, each printing one JSON line:
    ``EVREAL_PROFILE`` over a 32-window run under ``EVREAL_PRECISION=high``:
    one Chrome trace naming the voxelizer's kernels and a cuDNN
    convolution (and how many convolution kernels are TF32 ones);
-13. the ``kernels`` line: per ported kernel its launches on its path (and
+13. bench — every mode of the port's measurement entry point
+   (``python -m evreal_tpu_torch.bench``), each in a fresh process on the
+   card at full width but short: ``probes``; ``flagship`` (16 lanes, 3
+   steady chunks a leg); ``methods`` on E2VID and FireNet; ``serve``, 200
+   pushes of an E2VID stream; ``scaling`` at 16 lanes; ``profile`` over 2
+   chunks. Each opens with nvidia-smi's name and power-limit line and ends
+   with its JSON line, which the phase checks: the device platform
+   ``gpu``, every MFU in (0, 1.05], every device busy share at most 1 (the
+   modes hold their own outputs and launch counts and exit non-zero when
+   one fails); the phase's seconds;
+14. the ``kernels`` line: per ported kernel its launches on its path (and
    per method and path in the methods, eval-config, metrics, serve, train
    and mesh phases), error and times beside its bound, its serve shapes,
    its training launch and a mesh shard's launch; K1 (the direct path)
@@ -234,6 +244,20 @@ import time
 from contextlib import contextmanager
 
 import numpy as np
+
+from evreal_tpu_torch.bench.common import env
+from evreal_tpu_torch.bench.models import published_methods, random_init
+from evreal_tpu_torch.bench.timing import (
+    device_time,
+    host_enqueue_us,
+    latency,
+    path_device_us,
+    profile_calls,
+    time_ms,
+    time_turns,
+    top_kernels,
+    voxelize_kernels,
+)
 
 TOL_KERNEL = 2e-5  # tests/test_pallas_voxelize.py:25
 TOL_RECON = 1e-4   # raw E2VID output, card (TF32 off) vs CPU, 8 steps
@@ -268,66 +292,9 @@ def check(cond, msg):
         fail(msg)
 
 
-@contextmanager
-def env(**values):
-    """Set (str) or unset (None) environment variables for the block."""
-    saved = {k: os.environ.get(k) for k in values}
-    for k, v in values.items():
-        if v is None:
-            os.environ.pop(k, None)
-        else:
-            os.environ[k] = v
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
-
-def time_ms(torch, fn, flush, warmup=5, iters=25):
-    """Median ms of ``fn`` by CUDA events, L2 flushed before each run."""
-    return time_turns(torch, {"fn": fn}, flush, warmup, iters)["fn"]
-
-
-def time_turns(torch, fns, flush, warmup=5, iters=25):
-    """Median ms of each of ``fns`` ({name: fn}) by CUDA events, L2
-    flushed before each run, the functions taken in turns (each round in
-    the other order: A B, B A, ...). The events are created (recorded
-    once) before the first run: a CUDA event is created at its first
-    record, which costs the host tens of microseconds and would otherwise
-    fall inside the timed interval of a call whose enqueue outlasts the
-    flush."""
-    names = list(fns)
-    for _ in range(warmup):
-        for name in names:
-            fns[name]()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True))
-              for _ in range(iters * len(names))]
-    for start, end in events:
-        start.record()
-        end.record()
-    torch.cuda.synchronize()
-    times = {name: [] for name in names}
-    pairs = iter(events)
-    for i in range(iters):
-        for name in (names if i % 2 == 0 else names[::-1]):
-            start, end = next(pairs)
-            flush.zero_()
-            start.record()
-            fns[name]()
-            end.record()
-            end.synchronize()
-            times[name].append(start.elapsed_time(end))
-    return {name: float(np.median(t)) for name, t in times.items()}
-
 
 def time_variant(torch, vox, bufs, precision, hw, num_bins):
     """The kernel (one ``voxelize_windows`` call as the runner makes it),
@@ -378,40 +345,6 @@ def path_fn(vc, bufs, num_bins, hw, precision, path):
     return functools.partial(fn, tuple(bufs[k] for k in ("xs", "ys", "ts",
                                                          "ps")),
                              bufs["count"], num_bins, hw, precision)
-
-
-def host_enqueue_us(torch, fn, n=200):
-    """Host us per call of ``fn`` over ``n`` back-to-back calls, read on
-    the host clock before the synchronize: the enqueue, not the device."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    us = (time.perf_counter() - t0) / n * 1e6
-    torch.cuda.synchronize()
-    return us
-
-
-def path_device_us(torch, fn, n=20):
-    """Device us per call of ``fn``: the profiler's sum of the voxelizer's
-    kernels (and, apart, of memsets, which only the tiled path issues)
-    over ``n`` calls; None where the profile holds no device event."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    busy_ms, _, by_name = device_time(torch, prof)
-    kernels = voxelize_kernels(by_name)
-    if busy_ms is None or not kernels:
-        return {"kernels_us": None, "memset_us": None, "kernels": {}}
-    memset_us = sum(us for k, (us, _) in by_name.items()
-                    if "memset" in k.lower())
-    return {"kernels_us": sum(ms for ms, _ in kernels.values()) * 1e3 / n,
-            "memset_us": memset_us / n,
-            "kernels": {k: ms * 1e3 / c for k, (ms, c) in kernels.items()}}
 
 
 def scratch_is_zero(vc):
@@ -780,49 +713,6 @@ def phase_main_path(torch, vc, work, card, device="cuda"):
     return result
 
 
-def device_time(torch, prof):
-    """Device events of a profile: (busy ms as the union of their
-    intervals, span ms from the first start to the last end, {name:
-    (total us, count)}); the times are None when the profile holds no
-    device event (not measured)."""
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        tot, cnt = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
-    if not spans:
-        return None, None, by_name
-    busy_us, end = 0.0, None
-    for a, b in sorted(spans):
-        if end is None or a > end:
-            busy_us += b - a
-            end = b
-        elif b > end:
-            busy_us += b - end
-            end = b
-    span_us = max(b for _, b in spans) - min(a for a, _ in spans)
-    return busy_us / 1e3, span_us / 1e3, by_name
-
-
-def top_kernels(by_name, n=12):
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
-    return [[k[:90], t / 1e3, c] for k, (t, c) in top]
-
-
-def voxelize_kernels(by_name):
-    """The voxelizer's kernels in a profile: {name: [ms, launches]}, each
-    kernel's template instances folded into its name (csrc/voxelize.cu)."""
-    out = {}
-    for k, (us, cnt) in by_name.items():
-        m = re.search(r"voxelize_\w+_kernel", k)
-        if m:
-            ms, n = out.get(m.group(0), (0.0, 0))
-            out[m.group(0)] = (ms + us / 1e3, n + cnt)
-    return {k: list(v) for k, v in sorted(out.items())}
-
-
 def phase_profile(torch, runner, bufs, n, label):
     """Where one steady chunk's time goes (voxelize, n model steps,
     post-norm): torch.profiler's device events against the wall clock."""
@@ -1055,60 +945,7 @@ def phase_lockstep(torch, vc, vox, work, card, device="cuda"):
 # phase 6: all eight method configs from reference-schema checkpoints
 # ---------------------------------------------------------------------------
 
-def published_methods():
-    """method -> (registry class, constructor kwargs, kwargs the method's
-    checkpoint schema records) at the published widths: the E2VID family's
-    (reference eval.py:134-139), HyperE2VID's (the same plus the dynamic
-    decoder and ConvGRU cells), FireNet's (base 16, kernel 3, ConvGRU,
-    block 0 of 2 recurrent; Scheerlinck et al., WACV 2020), SPADE-E2VID's
-    and ET-Net's fixed ones (ET-Net's FFN width, 4 x 256, is an
-    assumption: the repository does not record it)."""
-    from evreal_tpu_torch.convert.checkpoint import SSL_E2VID_KWARGS
-    from evreal_tpu_torch.models import flagship_e2vid_kwargs
-
-    e2vid = {k: v for k, v in flagship_e2vid_kwargs().items()
-             if k != "final_activation"}
-    hyper = dict(e2vid, use_dynamic_decoder=True,
-                 recurrent_block_type="convgru")
-    firenet = {"num_bins": 5, "base_num_channels": 16, "kernel_size": 3}
-    legacy = dict(firenet, recurrent_block_type="convgru",
-                  num_residual_blocks=2, recurrent_blocks={"resblock": [0]})
-    eitr = {"num_bins": 5, "norm": None}
-    return {
-        "E2VID": ("E2VIDRecurrent", e2vid, e2vid),
-        "E2VID+": ("E2VIDRecurrent", e2vid, e2vid),
-        "FireNet": ("FireNet_legacy", legacy, legacy),
-        "FireNet+": ("FireNet", firenet, firenet),
-        "SPADE-E2VID": ("SpadeE2vid", {}, None),
-        "SSL-E2VID": ("E2VIDRecurrent", SSL_E2VID_KWARGS, None),
-        "ET-Net": ("EITR", dict(eitr, dim_feedforward=4 * 256), eitr),
-        "HyperE2VID": ("E2VIDRecurrent", hyper, hyper),
-    }
-
-
 NEW_CLASS_METHODS = ("FireNet", "HyperE2VID", "SPADE-E2VID", "ET-Net")
-
-
-def random_init(torch, model, seed):
-    """Seeded random weights from an explicit generator: weights uniform
-    in +-1/sqrt(fan_in) (torch's default bound), biases in +-0.1, norm
-    gains in 0.8..1.2, BN statistics random."""
-    g = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if p.ndim >= 2:
-                bound = p[0].numel() ** -0.5
-                p.uniform_(-bound, bound, generator=g)
-            elif name.endswith("weight"):
-                p.uniform_(0.8, 1.2, generator=g)
-            else:
-                p.uniform_(-0.1, 0.1, generator=g)
-        for name, b in model.named_buffers():
-            if name.endswith("running_mean"):
-                b.normal_(0.0, 0.1, generator=g)
-            elif name.endswith("running_var"):
-                b.uniform_(0.5, 1.5, generator=g)
-    return model
 
 
 def write_method_checkpoints(torch, root):
@@ -2265,14 +2102,6 @@ def serve_windows(n, hw, seed=0):
     return out
 
 
-def latency(ms):
-    a = np.asarray(ms)
-    return {"p50": float(np.percentile(a, 50)),
-            "p90": float(np.percentile(a, 90)),
-            "p99": float(np.percentile(a, 99)), "mean": float(a.mean()),
-            "n": int(a.size)}
-
-
 def timed_calls(call, args, warmup, timed):
     """``call(args(k))`` for ``warmup`` then ``timed`` calls, each timed on
     the host clock (a push returns host frames, so the device is done);
@@ -2302,30 +2131,6 @@ def host_pack_ms(serve, windows, hw, cap, wire, reps=5):
                                out={k: v[j] for k, v in bufs.items()})
         ms.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(ms))
-
-
-def profile_calls(torch, call, n, n_top=6):
-    """``call(k)`` for k < n traced on the device only: busy ms (the union
-    of device events) against the host's wall ms, per call, and the
-    ``n_top`` kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for k in range(n):
-            call(k)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, _, by_name = device_time(torch, prof)
-    measured = busy_ms is not None
-    return {"calls": n, "wall_ms_per_call": wall_ms / n,
-            "device_busy_ms_per_call": busy_ms / n if measured else None,
-            "device_idle_share": (1 - busy_ms / wall_ms) if measured
-            else None,
-            "device_events_per_call": sum(c for _, c in by_name.values()) / n,
-            "voxelize_kernels": voxelize_kernels(by_name),
-            "top_kernels": top_kernels(by_name, n_top)}
 
 
 def phase_serve(torch, vc, vox, work, card, device="cuda"):
@@ -3766,6 +3571,64 @@ def phase_native(torch, vc, work, card, build_info, device="cuda"):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the measurement entry point, every mode
+# ---------------------------------------------------------------------------
+
+BENCH_RUNS = (
+    ("probes",),
+    ("flagship", "--windows", "96", "--repeats", "1"),
+    ("methods", "-m", "E2VID", "FireNet", "--windows", "64", "--repeats",
+     "1"),
+    ("serve", "-m", "E2VID", "--windows", "200"),
+    ("scaling", "--batches", "16", "--windows", "64", "--repeats", "1"),
+    ("profile", "--windows", "64"),
+)
+MFU_MAX = 1.05  # MFU against the bf16 peak, f32 runs: far below 1
+
+
+def bench_values(obj, key):
+    """Every value of ``key`` in the nested dicts and lists of ``obj``."""
+    if isinstance(obj, dict):
+        return ([obj[key]] if key in obj else []) + [
+            v for x in obj.values() for v in bench_values(x, key)]
+    if isinstance(obj, list):
+        return [v for x in obj for v in bench_values(x, key)]
+    return []
+
+
+def phase_bench(card):
+    """``python -m evreal_tpu_torch.bench`` in every mode, one process
+    each: the card line first, the JSON line last, its device, MFUs and
+    busy shares in range."""
+    t_phase = time.perf_counter()
+    for argv in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "evreal_tpu_torch.bench", *argv],
+            cwd=os.path.dirname(SCRIPT), capture_output=True, text=True,
+            timeout=600, check=False)
+        check(proc.returncode == 0, f"bench {' '.join(argv)} exited "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        check(lines[0] == card, f"bench {argv[0]}: first line {lines[0]!r}")
+        line = json.loads(lines[-1])
+        check(line["mode"] == argv[0] and line["device"]["platform"] == "gpu",
+              f"bench {argv[0]}: mode or device {line['device']}")
+        metrics = {k: v for k, v in line.items() if k != "units"}
+        mfus = bench_values(metrics, "mfu_vs_bf16_peak")
+        check(all(isinstance(v, float) and 0 < v <= MFU_MAX for v in mfus),
+              f"bench {argv[0]}: MFU {mfus} outside (0, {MFU_MAX}]")
+        shares = bench_values(metrics, "device_busy_share")
+        check(all(isinstance(v, float) and 0 < v <= 1 for v in shares),
+              f"bench {argv[0]}: busy share {shares} outside (0, 1]")
+        check(argv[0] not in ("flagship", "methods") or mfus,
+              f"bench {argv[0]}: no MFU (no device time in its profile)")
+        emit({"phase": "bench", "argv": list(argv),
+              "seconds": time.perf_counter() - t0, "result": line})
+    emit({"phase": "bench", "seconds": time.perf_counter() - t_phase})
+
+
 def main():
     import torch
 
@@ -3816,6 +3679,7 @@ def main():
             phase_native(torch, vc, work, smi, native_build)
         finally:
             os.chdir(cwd)
+    phase_bench(smi)
     by_method = methods["launches"]
     at_launch = methods["kernel_at_launch"]
     color = configs["color"]

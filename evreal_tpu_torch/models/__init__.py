@@ -55,3 +55,19 @@ def flagship_e2vid_kwargs(num_bins=5):
                 num_encoders=3, recurrent_block_type="convlstm",
                 num_residual_blocks=2, skip_type="sum", norm=None,
                 use_upsample_conv=True, final_activation="sigmoid")
+
+
+def build_flagship_e2vid(seed=0, num_bins=5):
+    """(model, params) of the flagship E2VID architecture
+    (``evreal_tpu/models/__init__.py:build_flagship_e2vid``): ``params``
+    the host numpy tree of ``models.init.init_e2vid`` in the converted
+    layout (the JAX function's arrays for the same seed), ``model`` the
+    port's module on the CPU with those weights loaded."""
+    from evreal_tpu_torch.convert.params import from_jax_tree
+    from evreal_tpu_torch.models.init import init_e2vid
+
+    model = build_model("E2VIDRecurrent", flagship_e2vid_kwargs(num_bins))
+    params = init_e2vid(seed=seed, num_bins=num_bins, base_num_channels=32,
+                        kernel_size=5, num_encoders=3)
+    model.load_state_dict(from_jax_tree(params), strict=True)
+    return model, params
