@@ -217,10 +217,31 @@ Phases, each printing one JSON line:
    ``gpu``, every MFU in (0, 1.05], every device busy share at most 1 (the
    modes hold their own outputs and launch counts and exit non-zero when
    one fails); the phase's seconds;
-14. the ``kernels`` line: per ported kernel its launches on its path (and
+14. sweep — the robustness sweep (``python -m evreal_tpu_torch.sweep``)
+   at its own dataset size (two synthetic 180 x 240 sequences, 3 s at 25
+   fps, 24,000 events a frame) with E2VID and FireNet+ at their published
+   widths (seeded ``.pth`` files): before it, each condition's chunk-0
+   launch as ``evaluate`` packs it (2 lanes x 32 windows at the planned
+   capacity: 8,192 slots at t10ms and k5k, 65,536 at t100ms and k45k,
+   524,288 at kr0.1, 32,768 at kr1.0; k45k again in bf16) bit-equal to the
+   int64 plain version, within 2e-5 of the float64 one, and timed beside
+   ``index_add_`` and its bound; then the sweep in a process per family on
+   the card over ``t10ms t100ms``, ``k5k k45k`` and ``kr0.1 kr1.0`` (one
+   CLI process a condition): every condition ok with no contained
+   exception, one voxelizer launch per chunk and method (the CLI's count),
+   a timestamp row for every window and a finite score row for every
+   scored window (the frame within 1 ms of the window's end), a mean for
+   every (method, condition), no new build entry after the first
+   condition; FireNet+'s first 4 scored windows a lane of ``k5k`` (96
+   windows: it scores one in 24) and ``t100ms`` (8 windows) again on the
+   CPU (scores within 1e-3); ``k45k`` again through ``evaluate`` under
+   ``EVREAL_DTYPE=bfloat16`` (DEFAULT launches, its trees and means
+   checked the same way); the phase's seconds;
+15. the ``kernels`` line: per ported kernel its launches on its path (and
    per method and path in the methods, eval-config, metrics, serve, train
    and mesh phases), error and times beside its bound, its serve shapes,
-   its training launch and a mesh shard's launch; K1 (the direct path)
+   its training launch, a mesh shard's launch and the sweep's chunk-0
+   launches with the launches of their CLI runs; K1 (the direct path)
    with its stream launches, its T = 1 times on both wires beside the
    tiled path's, the host/device split, the launch floor and the
    crossover at T = 4, 8, 16;
@@ -246,7 +267,8 @@ from contextlib import contextmanager
 import numpy as np
 
 from evreal_tpu_torch.bench.common import env
-from evreal_tpu_torch.bench.models import published_methods, random_init
+from evreal_tpu_torch.bench.models import (published_methods,
+                                          write_method_checkpoints)
 from evreal_tpu_torch.bench.timing import (
     device_time,
     host_enqueue_us,
@@ -948,19 +970,13 @@ def phase_lockstep(torch, vc, vox, work, card, device="cuda"):
 NEW_CLASS_METHODS = ("FireNet", "HyperE2VID", "SPADE-E2VID", "ET-Net")
 
 
-def write_method_checkpoints(torch, root):
-    """Reference-schema ``.pth`` files of all eight methods (seed 0) and
-    the method configs of the repository naming them."""
-    from evreal_tpu_torch.convert.checkpoint import save_method_checkpoint
+def write_methods(torch, root):
+    """Reference-schema ``.pth`` files of all eight methods (seed 0,
+    ``write_method_checkpoints``) and the method configs of the repository
+    naming them."""
     from evreal_tpu_torch.harness.config import REPO_ROOT, read_json
-    from evreal_tpu_torch.models import build_model
 
-    for i, (method, (cls, kwargs, recorded)) in enumerate(
-            published_methods().items()):
-        model = random_init(torch, build_model(cls, kwargs), seed=i)
-        path = os.path.join(root, "pretrained", method, "model.pth")
-        os.makedirs(os.path.dirname(path))
-        save_method_checkpoint(path, method, model, recorded)
+    for method, path in write_method_checkpoints(torch, root).items():
         cfg = read_json(os.path.join(REPO_ROOT, "config", "method",
                                      method + ".json"))
         write_config(root, "method", method, dict(cfg, model_path=path))
@@ -1009,7 +1025,7 @@ def phase_methods(torch, vc, vox, work, card, device="cuda"):
     hw = (c["h"], c["w"])
     root = os.path.join(work, "methods")
     t0 = time.perf_counter()
-    write_method_checkpoints(torch, root)
+    write_methods(torch, root)
     lanes = [f"lane{j}" for j in range(MODEL_LANES)]
     make_sequence(os.path.join(root, "data", "MSYN", "seq0"), *hw,
                   MODEL_WINDOWS, EVENTS_PER_WINDOW, seed=7)
@@ -3629,6 +3645,251 @@ def phase_bench(card):
     emit({"phase": "bench", "seconds": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the robustness sweep (python -m evreal_tpu_torch.sweep)
+# ---------------------------------------------------------------------------
+
+SWEEP_METHODS = ("E2VID", "FireNet+")  # published widths
+SWEEP_RUNS = (("t", ("t10ms", "t100ms")), ("k", ("k5k", "k45k")),
+              ("kr", ("kr0.1", "kr1.0")))  # each family at its extremes
+# base seed of the sweep's .pth files: FireNet+ takes seed 1 + 3, whose
+# random output lies inside (0, 1); at phase 6's seed it is below 0 on
+# every pixel, and its clipped frames would not depend on the events
+SWEEP_SEED = 1
+SWEEP_BF16 = "k45k"             # run again under EVREAL_DTYPE=bfloat16
+SWEEP_CPU = ("k5k", "t100ms")   # FireNet+ again on the CPU
+SWEEP_CPU_METHOD = "FireNet+"
+SWEEP_CPU_SCORED = 4            # scored windows a lane in the CPU run
+
+
+def sweep_windows(condition):
+    """(eval config, sequences as ``evaluate`` builds them, each lane's
+    window metas, each lane's processed windows) of ``condition``, with
+    the configs of the working directory."""
+    from evreal_tpu_torch.harness.config import (get_dataset_configs,
+                                                 get_eval_configs)
+    from evreal_tpu_torch.harness.runner import gate_windows, get_datasets
+    from evreal_tpu_torch.sweep import DATASET
+
+    cfg = get_eval_configs([condition])[0]
+    seqs = get_datasets(get_dataset_configs([DATASET]),
+                        cfg.get("dataset_kwargs", {}))[0]["sequences"]
+    metas = [s["dataset"].windows() for s in seqs]
+    procs = [gate_windows(m, s["start_time_s"], s["end_time_s"],
+                          cfg.get("eval_infer_all", False))
+             for s, m in zip(seqs, metas)]
+    return cfg, seqs, metas, procs
+
+
+def scored_windows(cfg, seq, metas, proc):
+    """The windows whose scores the tracker records: inside the
+    sequence's cut, the frame within ``ts_tol_ms`` of the window's end."""
+    return [i for i in proc
+            if seq["start_time_s"] <= metas[i]["voxel_timestamp"]
+            <= seq["end_time_s"]
+            and abs(metas[i]["frame_timestamp"]
+                    - metas[i]["voxel_timestamp"]) * 1000
+            <= cfg["ts_tol_ms"]]
+
+
+def sweep_chunk0(seqs, metas, procs):
+    """Chunk 0 of a lockstep group as ``eval_method_on_sequence_group``
+    packs it (at the capacity it plans, or the chunk's own bucket above
+    it), lanes flattened into the launch's T. Returns (buffers, capacity,
+    valid windows)."""
+    from evreal_tpu_torch.data import pack_windows, plan_capacity
+    from evreal_tpu_torch.data.packing import alloc_buffers, bucket_capacity
+    from evreal_tpu_torch.harness.runner import DEFAULT_CHUNK_T, event_dtypes
+
+    n = len(seqs)
+    capacity = plan_capacity(metas[j][i]["event_count"]
+                             for j in range(n) for i in procs[j])
+    idxs = [p[:DEFAULT_CHUNK_T] for p in procs]
+    chunk_max = max(metas[j][i]["event_count"]
+                    for j in range(n) for i in idxs[j])
+    cap = capacity if chunk_max <= capacity else bucket_capacity(chunk_max)
+    bufs = alloc_buffers((n, DEFAULT_CHUNK_T), cap,
+                         event_dtypes([s["dataset"] for s in seqs]))
+    for j, ix in enumerate(idxs):
+        pack_windows(seqs[j]["dataset"], ix, capacity=cap,
+                     out={k: v[j, :len(ix)] for k, v in bufs.items()},
+                     metas=[metas[j][i] for i in ix], out_zeroed=True)
+    return ({k: v.reshape((-1,) + v.shape[2:]) for k, v in bufs.items()},
+            cap, sum(len(ix) for ix in idxs))
+
+
+def run_sweep(root, family, conditions, device, switches=None):
+    """``python -m evreal_tpu_torch.sweep`` on ``device``; its summary."""
+    argv = ["--family", family, "--methods", *SWEEP_METHODS, "--conditions",
+            *conditions, "--root", root, "--device", device]
+    with env(**(switches or {})):
+        proc = subprocess.run(
+            [sys.executable, "-m", "evreal_tpu_torch.sweep", *argv],
+            cwd=os.path.dirname(SCRIPT), capture_output=True, text=True,
+            timeout=600, check=False)
+    check(proc.returncode == 0, f"sweep {' '.join(argv)} exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(summary["ok"], f"sweep {family}: {summary}")
+    return summary
+
+
+def check_sweep_run(summary, windows, precision):
+    """Every condition of a sweep run: its voxelizer launches (one per
+    chunk of each method), every window's timestamp row, a finite score
+    row for every scored window (an empty window's may be dropped), the
+    mean of every (method, condition) pair. Returns {condition: score
+    rows a method}."""
+    from evreal_tpu_torch.harness.runner import DEFAULT_CHUNK_T
+
+    rows = {}
+    for rec in summary["conditions"]:
+        cond = rec["condition"]
+        cfg, seqs, metas, procs = windows[cond]
+        chunks = max(-(-len(p) // DEFAULT_CHUNK_T) for p in procs)
+        want = {"highest": 0, "default": 0,
+                precision: len(SWEEP_METHODS) * chunks}
+        check(rec["voxelize_launches"] == want, f"sweep {cond}: voxelizer "
+              f"launches {rec['voxelize_launches']}, want {want}")
+        for method in SWEEP_METHODS:
+            check(cond in summary["means"].get(method, {}),
+                  f"sweep {cond}: no mean for {method}")
+            n = 0
+            for seq, meta, proc in zip(seqs, metas, procs):
+                out = os.path.join("outputs", cond, "SYN_SWEEP",
+                                   seq["name"], method)
+                stamps = read_rows(os.path.join(out, "timestamps.txt"))
+                check(sorted(stamps) == proc, f"{out}: timestamp rows "
+                      f"{len(stamps)} != {len(proc)} windows")
+                scored = scored_windows(cfg, seq, meta, proc)
+                empty = {i for i in scored if meta[i]["event_count"] == 0}
+                for m in ("mse", "ssim"):
+                    got = read_rows(os.path.join(out, m + ".txt"))
+                    check(set(got) <= set(scored)
+                          and set(scored) - set(got) <= empty
+                          and all(np.isfinite(v) for v in got.values()),
+                          f"{out}/{m}.txt: rows {sorted(got)[:8]}..., "
+                          f"scored windows {scored[:8]}..., or non-finite")
+                n += len(got) // 2  # the mse and the ssim rows
+            rows.setdefault(cond, {})[method] = n
+    return rows
+
+
+def card_vs_cpu(torch, vc, condition):
+    """FireNet+'s first scored windows of ``condition`` again through
+    ``evaluate`` on the CPU (each lane cut after its SWEEP_CPU_SCORED-th
+    scored window): the same score rows as the card's sweep, within
+    TOL_SCORE. Returns (max abs error, windows a lane run)."""
+    cfg, seqs, metas, procs = sweep_windows(condition)
+    name = f"SWEEP_CPU_{condition}"
+    ends, last = {}, []
+    for seq, meta, proc in zip(seqs, metas, procs):
+        scored = scored_windows(cfg, seq, meta, proc)
+        check(len(scored) >= SWEEP_CPU_SCORED, f"sweep {condition}: "
+              f"{len(scored)} scored windows")
+        last.append(scored[SWEEP_CPU_SCORED - 1])
+        ends[seq["name"]] = {"end_time_s": float(
+            meta[last[-1]]["voxel_timestamp"])}
+    write_config(".", "dataset", name, {"root_path": "data/SYN_SWEEP",
+                                        "sequences": ends})
+    capture_evaluate(vc, [SWEEP_CPU_METHOD], condition, name,
+                     f"sweep {condition} cpu", "cpu")
+    err = 0.0
+    for seq, n in zip(seqs, last):
+        for m in ("mse", "ssim"):
+            base = os.path.join(seq["name"], SWEEP_CPU_METHOD, m + ".txt")
+            cpu = read_rows(os.path.join("outputs", condition, name, base))
+            card = read_rows(os.path.join("outputs", condition, "SYN_SWEEP",
+                                          base))
+            card = {i: v for i, v in card.items() if i <= n}
+            check(sorted(cpu) == sorted(card) and len(cpu) >= 1,
+                  f"sweep {condition} {m}: CPU rows {sorted(cpu)} vs card "
+                  f"{sorted(card)}")
+            err = max([err] + [abs(cpu[i] - card[i]) for i in cpu])
+    check(err <= TOL_SCORE, f"sweep {condition}: card vs CPU scores {err} "
+          f"> {TOL_SCORE}")
+    return err, [n + 1 for n in last]
+
+
+def phase_sweep(torch, vc, vox, work, card, device="cuda"):
+    """The sweep through its entry point on the card, two conditions of
+    each family; K2 held at each condition's chunk-0 launch before."""
+    from evreal_tpu_torch import sweep
+    from evreal_tpu_torch.analysis import read_scores
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "sweep")
+    sweep.provision_dataset(root)
+    write_method_checkpoints(torch, root, SWEEP_METHODS, seed=SWEEP_SEED)
+    os.chdir(root)
+    windows = {c: sweep_windows(c) for _, conds in SWEEP_RUNS
+               for c in conds}
+    hw = windows["t10ms"][1][0]["dataset"].sensor_resolution
+    at_launch = {"highest": {}, "default": {}}
+    for prec, conds, switches in (
+            ("highest", list(windows), {}),
+            ("default", [SWEEP_BF16], {"EVREAL_DTYPE": "bfloat16"})):
+        for cond in conds:
+            with env(**switches):
+                arrays, cap, valid = sweep_chunk0(*windows[cond][1:])
+            bufs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                    for k, v in arrays.items()}
+            err = hold_to_plain(torch, vox, bufs, ECD["b"], hw, prec,
+                                f"sweep {cond} launch")[0]
+            at_launch[prec][cond] = dict(
+                time_variant(torch, vox, bufs, prec, hw, ECD["b"]),
+                capacity=cap, valid_windows=valid, max_abs_err=err,
+                wire="f32")
+            del bufs
+    kernel_s = time.perf_counter() - t_phase
+
+    summaries = [run_sweep(root, family, conds, device)
+                 for family, conds in SWEEP_RUNS]
+    records = [r for s in summaries for r in s["conditions"]]
+    rows = {}
+    for s in summaries:
+        rows.update(check_sweep_run(s, windows, "highest"))
+    check(all(r["new_build_entries"] == 0 for r in records[1:]),
+          f"sweep: new build entries after the first condition "
+          f"{[r['new_build_entries'] for r in records]}")
+    cpu = {c: card_vs_cpu(torch, vc, c) for c in SWEEP_CPU}
+    # bf16 through evaluate in this process (two process starts fewer)
+    _, launches, ms, wall_s, _ = capture_evaluate(
+        vc, list(SWEEP_METHODS), SWEEP_BF16, sweep.DATASET,
+        f"sweep {SWEEP_BF16} bf16", device,
+        switches={"EVREAL_DTYPE": "bfloat16"})
+    bf16 = {"conditions": [{"condition": SWEEP_BF16, "wall_s": wall_s,
+                            "ms_per_frame": {SWEEP_METHODS[0]: ms},
+                            "voxelize_launches": launches}],
+            "means": read_scores("outputs", SWEEP_BF16, "mse",
+                                 datasets=[sweep.DATASET])}
+    check_sweep_run(bf16, windows, "default")
+    for prec, runs in (("highest", records), ("default", bf16["conditions"])):
+        for r in runs:
+            if r["condition"] in at_launch[prec]:
+                at_launch[prec][r["condition"]]["launches"] = \
+                    r["voxelize_launches"][prec]
+    seconds = time.perf_counter() - t_phase
+    result = {"phase": "sweep", "card": card, "seconds": seconds,
+              "kernel_s": kernel_s, "methods": list(SWEEP_METHODS),
+              "conditions": {r["condition"]: {k: r[k] for k in (
+                  "wall_s", "ms_per_frame", "new_build_entries",
+                  "voxelize_launches")} for r in records},
+              "score_rows": rows,
+              "means": {m: {c: v for s in summaries
+                            for c, v in s["means"][m].items()}
+                        for m in SWEEP_METHODS},
+              "bf16": {k: bf16["conditions"][0][k] for k in (
+                  "condition", "wall_s", "ms_per_frame",
+                  "voxelize_launches")},
+              "card_vs_cpu": {c: {"max_abs_err": e, "windows_a_lane": n}
+                              for c, (e, n) in cpu.items()},
+              "kernel_at_launch": at_launch,
+              "bit_equal_int64_plain": True}
+    emit(result)
+    return result
+
+
 def main():
     import torch
 
@@ -3680,6 +3941,12 @@ def main():
         finally:
             os.chdir(cwd)
     phase_bench(smi)
+    with tempfile.TemporaryDirectory() as work:
+        cwd = os.getcwd()
+        try:
+            swept = phase_sweep(torch, vc, vox, work, smi)
+        finally:
+            os.chdir(cwd)
     by_method = methods["launches"]
     at_launch = methods["kernel_at_launch"]
     color = configs["color"]
@@ -3737,6 +4004,13 @@ def main():
             "wire", "max_abs_err", "accumulate_blocks")}
             for k, v in served["voxelize_at_serve_shapes"][prec].items()
             if v["route"] == route}
+
+    def sweep_launches(prec):
+        return {c: {k: v[k] for k in (
+            "launches", "capacity", "windows", "valid_windows", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "wire",
+            "max_abs_err")}
+            for c, v in swept["kernel_at_launch"][prec].items()}
 
     def direct_call(prec):
         """K1 at T = 1 on its stream wire: the routed (direct) call with
@@ -3804,7 +4078,9 @@ def main():
              + [v["max_abs_err"] for v in
                 serve_shapes("highest", "tiled").values()]
              + [train_launch["max_abs_err"],
-                shard_launch["highest"]["max_abs_err"]]),
+                shard_launch["highest"]["max_abs_err"]]
+             + [v["max_abs_err"] for v in
+                swept["kernel_at_launch"]["highest"].values()]),
          "ms": f32_times["ms"], "plain_ms": f32_times["plain_ms"],
          "bound_ms": f32_times["bound_ms"], "bound_by": f32_times["bound_by"],
          "library_ms": f32_times["library_ms"],
@@ -3826,6 +4102,7 @@ def main():
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "windows", "wire", "max_abs_err", "launches_per_step")},
          "mesh_shard_launch": mesh_launch("highest"),
+         "sweep_launches": sweep_launches("highest"),
          "card": smi},
         {"name": "voxelize_windows_bf16_factors", "route": "cuda",
          "source": source, "path": "tiled",
@@ -3839,7 +4116,9 @@ def main():
                             + launch_errs("default")
                             + [v["max_abs_err"] for v in
                                serve_shapes("default", "tiled").values()]
-                            + [shard_launch["default"]["max_abs_err"]]),
+                            + [shard_launch["default"]["max_abs_err"]]
+                            + [v["max_abs_err"] for v in swept[
+                                "kernel_at_launch"]["default"].values()]),
          "ms": bf16_times["ms"], "plain_ms": bf16_times["plain_ms"],
          "bound_ms": bf16_times["bound_ms"],
          "bound_by": bf16_times["bound_by"],
@@ -3854,6 +4133,7 @@ def main():
          "serve_launches": serve_launches("default", "tiled"),
          "serve_shapes": serve_shapes("default", "tiled"),
          "mesh_shard_launch": mesh_launch("default"),
+         "sweep_launches": sweep_launches("default"),
          "card": smi}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,8 @@
 """The methods at their published widths with seeded random weights: the
-models the bench and ``chip_smoke.py`` run (no checkpoint ships with the
-repository, and none is downloaded)."""
+models the bench, the robustness sweep and ``chip_smoke.py`` run (no
+checkpoint ships with the repository, and none is downloaded)."""
+
+import os
 
 from evreal_tpu_torch.harness.config import get_method_config
 
@@ -73,3 +75,33 @@ def method_model(torch, method, seed):
     return model, {"event_norm": cfg.get("event_tensor_normalization",
                                          False),
                    "post_norm": cfg.get("post_process_norm", "none")}
+
+
+def write_method_checkpoints(torch, root, methods=None, seed=0):
+    """Reference-schema ``.pth`` files at the published widths, one per
+    method of ``methods`` (default: all eight), at
+    ``<root>/pretrained/<method>/model.pth``, the path the repository's
+    ``config/method/<method>.json`` names. Method ``i`` of
+    ``published_methods()`` takes the seed ``seed + i``, whichever others
+    are written with it. An existing file is left in place. Returns
+    {method: path} of every method asked for."""
+    from evreal_tpu_torch.convert.checkpoint import save_method_checkpoint
+    from evreal_tpu_torch.models import build_model
+
+    table = published_methods()
+    unknown = sorted(set(methods or ()) - set(table))
+    if unknown:
+        raise ValueError(f"no published widths for {unknown}; known: "
+                         f"{sorted(table)}")
+    paths = {}
+    for i, (method, (cls, kwargs, recorded)) in enumerate(table.items()):
+        if methods is not None and method not in methods:
+            continue
+        path = os.path.join(root, "pretrained", method, "model.pth")
+        paths[method] = path
+        if os.path.exists(path):
+            continue
+        model = random_init(torch, build_model(cls, kwargs), seed=seed + i)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        save_method_checkpoint(path, method, model, recorded)
+    return paths

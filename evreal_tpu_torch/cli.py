@@ -7,15 +7,22 @@ It writes the same output tree (``outputs/<config>/<dataset>/<sequence>/
 device. A method's ``model_path`` may name a reference ``.pth`` or a
 converted ``.npz`` with its sidecar. A metric whose weights are absent
 (``lpips`` without ``weights/lpips_alex.npz`` or ``EVREAL_LPIPS_WEIGHTS``)
-is skipped with a message, as is an unknown name.
+is skipped with a message, as is an unknown name. Its last line counts
+the CUDA voxelizer's launches of the run by precision (0 on the CPU, whose
+plain path launches no kernel); ``python -m evreal_tpu_torch.sweep`` reads
+it.
 """
 
 import argparse
+import json
+
+LAUNCHES_PREFIX = "voxelizer launches: "
 
 
 def main(argv=None):
     from evreal_tpu_torch.harness.runner import DEFAULT_METRICS, evaluate
     from evreal_tpu_torch.harness.timers import TimingLog
+    from evreal_tpu_torch.kernels import voxelize_cuda
 
     parser = argparse.ArgumentParser(
         description="event2im evaluation script (PyTorch/CUDA port)")
@@ -35,12 +42,16 @@ def main(argv=None):
                              "plain CPU path)")
     args = parser.parse_args(argv)
     timings = TimingLog()
+    before = dict(voxelize_cuda.launches_by_precision)
     results = evaluate(args.method, args.config, args.dataset, args.metrics,
                        device=args.device, timings=timings)
     if timings.samples:
         print("== Timing statistics ==")
         for line in timings.summary():
             print(line)
+    print(LAUNCHES_PREFIX + json.dumps(
+        {k: n - before[k]
+         for k, n in voxelize_cuda.launches_by_precision.items()}))
     return results
 
 

@@ -5,8 +5,9 @@ the flagship chunk on the bench's compact4 buffers against the JAX
 (byte-equal), every mode through ``main`` at tiny sizes (a parseable last
 line on the CPU with no device metric), ``--device cuda`` without a card,
 the union arithmetic of ``timing.device_time``, the profile report of a
-synthetic Chrome trace, and the reported FLOPs against the runners'
-``cost_analysis``."""
+synthetic Chrome trace, the reported FLOPs against the runners'
+``cost_analysis``, and the ``.pth`` files of ``write_method_checkpoints``
+read back tensor for tensor."""
 
 import json
 import types
@@ -21,10 +22,13 @@ from evreal_tpu.harness.batched import BatchedRunner as JaxBatchedRunner
 from evreal_tpu.models import build_flagship_e2vid as jax_flagship
 from evreal_tpu_torch.bench import common, flagship, profile_chunk, timing
 from evreal_tpu_torch.bench.__main__ import main
-from evreal_tpu_torch.bench.models import method_model
+from evreal_tpu_torch.bench.models import (method_model, published_methods,
+                                           random_init,
+                                           write_method_checkpoints)
+from evreal_tpu_torch.convert.checkpoint import load_method_checkpoint
 from evreal_tpu_torch.convert.params import flatten, from_jax_tree
 from evreal_tpu_torch.harness.runner import MethodRunner
-from evreal_tpu_torch.models import build_flagship_e2vid
+from evreal_tpu_torch.models import build_flagship_e2vid, build_model
 
 torch.set_num_threads(1)
 
@@ -265,3 +269,29 @@ def test_chip_smoke_shares_the_bench_helpers():
     helpers: they are the bench's."""
     assert chip_smoke.time_turns is timing.time_turns
     assert chip_smoke.host_enqueue_us is timing.host_enqueue_us
+
+
+@pytest.mark.parametrize("method", sorted(published_methods()))
+def test_method_checkpoints_read_back(tmp_path, method):
+    """A method's ``.pth`` at its published width, written alone, holds the
+    weights of its seed (its index in ``published_methods()``) tensor for
+    tensor; a second call leaves it in place."""
+    path = write_method_checkpoints(torch, str(tmp_path), [method])[method]
+    assert path == str(tmp_path / "pretrained" / method / "model.pth")
+    table = published_methods()
+    cls, kwargs, _ = table[method]
+    want = random_init(torch, build_model(cls, kwargs),
+                       seed=list(table).index(method)).state_dict()
+    got, meta = load_method_checkpoint(method, path)
+    assert meta["model_name"] == method
+    want = {k: v for k, v in want.items()
+            if not k.endswith("num_batches_tracked")}
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+    stamp = (tmp_path / "pretrained" / method / "model.pth").stat().st_mtime_ns
+    write_method_checkpoints(torch, str(tmp_path), [method], seed=5)
+    assert (tmp_path / "pretrained" / method
+            / "model.pth").stat().st_mtime_ns == stamp
+    with pytest.raises(ValueError, match="no published widths"):
+        write_method_checkpoints(torch, str(tmp_path), ["nosuch"])

@@ -1,7 +1,8 @@
-"""The port imports nothing of JAX, of the JAX package or of OpenCV (the
-card's machine has neither), and no pyiqa (looked for only when a metric
-name is not a built-in). Checked in a fresh interpreter: this test
-process has imported jax already (tests/conftest.py)."""
+"""The port imports nothing of JAX, of the JAX package, of OpenCV, of
+matplotlib or of pandas (the card's machine has none of them), and no
+pyiqa (looked for only when a metric name is not a built-in). Checked in a
+fresh interpreter: this test process has imported jax already
+(tests/conftest.py)."""
 
 import json
 import subprocess
@@ -20,7 +21,8 @@ for name in names:
 import chip_smoke  # noqa: F401
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "evreal_tpu", "cv2",
-                                    "pyiqa", "optax", "orbax"))
+                                    "pyiqa", "optax", "orbax",
+                                    "matplotlib", "pandas"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -52,4 +54,7 @@ def test_port_imports_no_jax_and_no_evreal_tpu():
             "evreal_tpu_torch.train",
             "evreal_tpu_torch.train_cli",
             "evreal_tpu_torch.parallel.mesh",
-            "evreal_tpu_torch.utils.mfu"} <= set(report["modules"])
+            "evreal_tpu_torch.utils.mfu",
+            "evreal_tpu_torch.sweep",
+            "evreal_tpu_torch.analysis",
+            "evreal_tpu_torch.data.synthetic"} <= set(report["modules"])
