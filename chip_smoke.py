@@ -237,7 +237,22 @@ Phases, each printing one JSON line:
    CPU (scores within 1e-3); ``k45k`` again through ``evaluate`` under
    ``EVREAL_DTYPE=bfloat16`` (DEFAULT launches, its trees and means
    checked the same way); the phase's seconds;
-15. the ``kernels`` line: per ported kernel its launches on its path (and
+15. writer — the background PNG writer (one thread per sequence) on the
+   three eval paths, with full-width E2VID (seed 0) on 16 synthetic 180 x
+   240 sequences of 128 windows (4 chunks a lane): 16-lane f32 lockstep on
+   the f32 wire, the same in bf16 on compact4, and single f32, each with
+   ``-c std`` (images on) and with ``save_images`` off. Checks one PNG a
+   window, each decoded with ``outputs.decode_png``; the first 8 windows
+   of two lanes within 1 grey level of the CPU in f32 and of the card's
+   own recomputation in bf16 (bf16 on the CPU rounds otherwise; its
+   difference is printed beside); timestamps, score and event-rate rows
+   byte-equal between the images-on and images-off runs; ``done.json``;
+   no writer thread alive afterwards and the most alive at once (16, 1,
+   or 0 without images); one voxelizer launch a chunk. Prints each run's
+   steady ms/frame, the whole wall of ``evaluate`` (``finalize``'s drain
+   included), the host's core count, and the host's PNG frames/s on 256
+   of the run's frames with 1, 2, 4, 8 and 16 writers and without one;
+16. the ``kernels`` line: per ported kernel its launches on its path (and
    per method and path in the methods, eval-config, metrics, serve, train
    and mesh phases), error and times beside its bound, its serve shapes,
    its training launch, a mesh shard's launch and the sweep's chunk-0
@@ -261,6 +276,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from contextlib import contextmanager
 
@@ -3890,6 +3906,241 @@ def phase_sweep(torch, vc, vox, work, card, device="cuda"):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the background PNG writer on the eval paths
+# ---------------------------------------------------------------------------
+
+WRITER_WINDOWS = 128    # 4 chunks of CHUNK_T windows a lane
+WRITER_CPU_WINDOWS = 8  # the first windows of WRITER_CPU_LANES lanes on the CPU
+WRITER_CPU_LANES = 2
+WRITER_RUNS = (  # (label, lanes, switches, voxelizer precision, wire)
+    ("lockstep_f32", N_LANES, dict(EVREAL_DTYPE=None, EVREAL_WIRE=None),
+     "highest", "f32"),
+    ("lockstep_bf16_compact4", N_LANES,
+     dict(EVREAL_DTYPE="bfloat16", EVREAL_WIRE="compact4"), "default",
+     "compact4"),
+    ("single_f32", 1, dict(EVREAL_DTYPE=None, EVREAL_WIRE=None), "highest",
+     "f32"))
+WRITER_TEXT = ("timestamps.txt", "mse.txt", "ssim.txt", "event_rate.txt")
+WRITER_SCALING = (1, 2, 4, 8, 16)  # writers sharing the same frames
+WRITER_SCALING_FRAMES = 16         # a lane's first frames of the f32 run
+
+
+def writer_threads():
+    from evreal_tpu_torch.harness.outputs import AsyncImageWriter
+
+    return [t for t in threading.enumerate()
+            if t.name == AsyncImageWriter.THREAD_NAME]
+
+
+@contextmanager
+def writer_thread_peak(period_s=0.005):
+    """The most frame-writer threads alive at once while the block runs,
+    sampled every ``period_s``: yields a dict whose "peak" is set at the
+    block's end."""
+    out, stop = {"peak": 0}, threading.Event()
+
+    def sample():
+        while True:
+            out["peak"] = max(out["peak"], len(writer_threads()))
+            if stop.wait(period_s):
+                return
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        sampler.join()
+
+
+def writer_frames(torch, seqs, wire, switches, device):
+    """u8 frames (lanes, WRITER_CPU_WINDOWS, H, W) of the first windows of
+    ``seqs`` in one lockstep group on ``device``, under ``switches``."""
+    from evreal_tpu_torch.data.packing import bucket_capacity
+    from evreal_tpu_torch.harness.runner import (MethodBundle,
+                                                 get_method_config,
+                                                 quantize_u8)
+
+    method_config = get_method_config("E2VID")
+    with env(**switches):
+        runner = MethodBundle("E2VID", method_config, device) \
+            .batched_runner_for(tuple(seqs[0].sensor_resolution),
+                                method_config, ECD["b"], len(seqs))
+        bufs = pack_lanes(seqs, WRITER_CPU_WINDOWS,
+                          bucket_capacity(EVENTS_PER_WINDOW), wire)
+        _, _, clipped = runner.run(runner.init_state(), runner.upload(bufs),
+                                   WRITER_CPU_WINDOWS)
+    return quantize_u8(clipped).cpu().numpy()
+
+
+def frames_diff(frames, ref, lane, first):
+    """Max grey-level difference of a lane's first windows (from window
+    ``first``) against ``ref`` (lanes, windows, H, W)."""
+    return max(int(np.abs(frames[i].astype(int)
+                          - ref[lane, i].astype(int)).max())
+               for i in range(first, WRITER_CPU_WINDOWS))
+
+
+def encode_scaling(frames, folder):
+    """PNG frames/s of the host: ``save_inferred_image`` on the loop's
+    thread, then ``n`` writers taking ``frames`` in turn, for each ``n``
+    of WRITER_SCALING (every writer joined inside the clock)."""
+    from evreal_tpu_torch.harness.outputs import (AsyncImageWriter,
+                                                  save_inferred_image)
+
+    os.makedirs(folder)
+    t0 = time.perf_counter()
+    for i, frame in enumerate(frames):
+        save_inferred_image(folder, frame, i)
+    out = {"synchronous": len(frames) / (time.perf_counter() - t0)}
+    for n in WRITER_SCALING:
+        t0 = time.perf_counter()
+        writers = [AsyncImageWriter() for _ in range(n)]
+        for i, frame in enumerate(frames):
+            writers[i % n].submit(folder, frame, i)
+        for w in writers:
+            w.close()
+        out[f"writers_{n}"] = len(frames) / (time.perf_counter() - t0)
+    return out
+
+
+def read_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def phase_writer(torch, vc, work, card, device="cuda"):
+    """Frames written by one background thread per sequence on the three
+    eval paths, images on and off: every PNG present and decodable, the
+    first windows against the CPU, rows equal with and without images,
+    done.json, no writer thread left, one voxelizer launch per chunk;
+    ms/frame, evaluate's whole wall and the peak writer threads."""
+    from evreal_tpu_torch.convert.params import flatten, save_params
+    from evreal_tpu_torch.data import Sequence
+    from evreal_tpu_torch.models import flagship_e2vid_kwargs
+    from evreal_tpu_torch.models.init import init_e2vid
+
+    c = ECD
+    hw = (c["h"], c["w"])
+    t_phase = time.perf_counter()
+    names = [f"seq{j:02d}" for j in range(N_LANES)]
+    root = os.path.join(work, "data", "WRITE")
+    for j, name in enumerate(names):
+        make_sequence(os.path.join(root, name), c["h"], c["w"],
+                      WRITER_WINDOWS, EVENTS_PER_WINDOW, seed=200 + j)
+    kw = flagship_e2vid_kwargs()
+    npz = os.path.join(work, "weights", "E2VID.npz")
+    os.makedirs(os.path.dirname(npz))
+    save_params(npz, flatten(init_e2vid(
+        seed=0, num_bins=kw["num_bins"],
+        base_num_channels=kw["base_num_channels"],
+        kernel_size=kw["kernel_size"], num_encoders=kw["num_encoders"],
+        num_residual_blocks=kw["num_residual_blocks"])),
+        {"class": "E2VIDRecurrent", "kwargs": kw, "model_name": "E2VID"})
+    write_config(work, "method", "E2VID",
+                 {"model_name": "E2VID", "model_path": npz,
+                  "event_tensor_normalization": True,
+                  "post_process_norm": "robust"})
+    write_eval_config(work, "std_noimg", save_images=False)
+    for label, lanes, *_ in WRITER_RUNS:
+        write_config(work, "dataset", f"W_{label}",
+                     {"root_path": root,
+                      "sequences": {n: {} for n in names[:lanes]}})
+    setup_s = time.perf_counter() - t_phase
+    os.chdir(work)
+    seqs = [Sequence(os.path.join(root, n), num_bins=c["b"])
+            for n in names]
+    n_chunks = WRITER_WINDOWS // CHUNK_T
+    cores = len(os.sched_getaffinity(0))
+
+    runs, refs, sample = {}, {}, []
+    for label, lanes, switches, prec, wire in WRITER_RUNS:
+        dataset = f"W_{label}"
+        run = runs[label] = {"lanes": lanes, "frames": lanes * WRITER_WINDOWS,
+                             "host_cores": cores, "card": card}
+        # the frames the PNGs are held to: in f32 the CPU's (phase 4's
+        # check); in bf16 the card's own, recomputed by a runner of the
+        # run's lanes (bf16 on the CPU rounds otherwise: its difference
+        # is reported beside)
+        if (wire, prec) not in refs:
+            refs[wire, prec] = {"cpu": writer_frames(
+                torch, seqs[:WRITER_CPU_LANES], wire, switches, "cpu")}
+            if prec == "default":
+                refs[wire, prec]["card"] = writer_frames(
+                    torch, seqs[:lanes], wire, switches, device)
+        ref = refs[wire, prec]
+        for images, config in ((True, "std"), (False, "std_noimg")):
+            key = "images_on" if images else "images_off"
+            with writer_thread_peak() as peak:
+                _, launches, ms, wall_s, _ = capture_evaluate(
+                    vc, ["E2VID"], config, dataset, f"writer {label} {key}",
+                    device, switches=switches)
+            want = {"highest": 0, "default": 0}
+            want[prec] = n_chunks
+            check(launches == want, f"writer {label} {key}: voxelizer "
+                  f"launches {launches}, want {want} (one per chunk)")
+            left = writer_threads()
+            check(not left, f"writer {label} {key}: {len(left)} writer "
+                  f"threads alive after evaluate")
+            check(peak["peak"] == (lanes if images else 0),
+                  f"writer {label} {key}: {peak['peak']} writer threads at "
+                  f"most, want {lanes if images else 0}")
+            run[key] = {"ms_per_frame_steady": ms, "evaluate_wall_s": wall_s,
+                        "peak_writer_threads": peak["peak"],
+                        "voxelize_launches": launches[prec]}
+        png_err, cpu_err = 0, 0
+        for j, name in enumerate(names[:lanes]):
+            on, off = (os.path.join("outputs", cfg, dataset, name, "E2VID")
+                       for cfg in ("std", "std_noimg"))
+            for out in (on, off):
+                check(os.path.exists(os.path.join(out, "done.json")),
+                      f"writer {label}: {out}/done.json missing")
+            for text in WRITER_TEXT:
+                check(read_bytes(os.path.join(on, text))
+                      == read_bytes(os.path.join(off, text)),
+                      f"writer {label} {name}: {text} differs between the "
+                      f"images-on and images-off runs")
+            check(not [f for f in os.listdir(off) if f.endswith(".png")],
+                  f"writer {label}: {off} has PNGs with save_images off")
+            # every window's PNG decoded (outputs.decode_png), its rows
+            _, frames = check_tree(on, WRITER_WINDOWS, hw, may_skip={0}
+                                   if prec == "default" else ())
+            n_png = sum(f.endswith(".png") for f in os.listdir(on))
+            check(n_png == WRITER_WINDOWS, f"writer {label} {name}: {n_png} "
+                  f"PNGs for {WRITER_WINDOWS} windows")
+            if label == "lockstep_f32":
+                sample += frames[:WRITER_SCALING_FRAMES]
+            if j < WRITER_CPU_LANES:
+                # bf16: a lane's empty first window is a flat frame that
+                # the robust post-norm turns to NaN (phase 5's window 0)
+                first = 1 if prec == "default" else 0
+                cpu_err = max(cpu_err, frames_diff(frames, ref["cpu"], j,
+                                                   first))
+                png_err = max(png_err, frames_diff(
+                    frames, ref.get("card", ref["cpu"]), j, first))
+        run["png_held_to"] = "card" if "card" in ref else "cpu"
+        run["png_max_diff"] = png_err
+        run["png_max_diff_vs_cpu"] = cpu_err
+        run["windows_compared"] = min(lanes, WRITER_CPU_LANES) * \
+            WRITER_CPU_WINDOWS
+    result = {"phase": "writer", "method": "E2VID", "width": "full",
+              "sensor": list(hw), "windows_per_lane": WRITER_WINDOWS,
+              "chunk_t": CHUNK_T, "card": card, "host_cores": cores,
+              "setup_s": setup_s, "runs": runs,
+              "png_frames_per_s": encode_scaling(
+                  sample, os.path.join(work, "encode")),
+              "png_frames_timed": len(sample),
+              "seconds": time.perf_counter() - t_phase}
+    emit(result)
+    for label, run in runs.items():  # after the line, which shows them all
+        check(run["png_max_diff"] <= 1, f"writer {label}: PNGs vs the "
+              f"{run['png_held_to']} frames {run['png_max_diff']} grey "
+              f"levels")
+    return result
+
+
 def main():
     import torch
 
@@ -3945,6 +4196,12 @@ def main():
         cwd = os.getcwd()
         try:
             swept = phase_sweep(torch, vc, vox, work, smi)
+        finally:
+            os.chdir(cwd)
+    with tempfile.TemporaryDirectory() as work:
+        cwd = os.getcwd()
+        try:
+            phase_writer(torch, vc, work, smi)
         finally:
             os.chdir(cwd)
     by_method = methods["launches"]

@@ -48,6 +48,7 @@ from evreal_tpu_torch.harness.histeq import histogram_equalization
 from evreal_tpu_torch.harness.runner import (
     MethodRunner,
     MetricContainment,
+    abandon_on_error,
     check_resume,
     equalized_refs,
     event_dtypes,
@@ -359,13 +360,15 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
     timings = timings if timings is not None else TimingLog()
     max_chunks = max((-(-len(p) // chunk_t) for p in procs), default=0)
     total = sum(len(p) for p in procs)
-    with DeviceTimer(timings, method_name, total,
-                     [r.device for r, _ in parts]) as timer:
+    with abandon_on_error(trackers), DeviceTimer(
+            timings, method_name, total,
+            [r.device for r, _ in parts]) as timer:
         run_chunks(max_chunks, dispatch, drain, timer)
 
     results, first_err = [], None
     for tracker in trackers:
-        # finish every tracker even if one sequence's writer failed
+        # finish every tracker even if one sequence's writer failed, so
+        # that the others write their queued frames and stop their threads
         try:
             finish_tracker(tracker, eval_config, contain.dead)
         except Exception as e:  # noqa: BLE001 — re-raised after the loop

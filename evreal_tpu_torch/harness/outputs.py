@@ -7,11 +7,15 @@ color frames (given in BGR order, as ``cv2.imwrite`` takes them).
 
 The PNG encoder is written with the standard library (``zlib`` +
 ``struct``), so the port needs no image library; the files decode to the
-same pixels as the JAX package's (OpenCV-written) frames.
+same pixels as the JAX package's (OpenCV-written) frames. The eval loops
+hand frames to an ``AsyncImageWriter``, which encodes them on a thread of
+its own, as the JAX package's does.
 """
 
 import os
+import queue
 import struct
+import threading
 import zlib
 
 import numpy as np
@@ -108,3 +112,69 @@ def save_inferred_image(folder, image, idx):
     path = os.path.join(folder, "frame_{:010d}.png".format(idx))
     with open(path, "wb") as f:
         f.write(encode(arr))
+
+
+class AsyncImageWriter:
+    """Background PNG writer (``evreal_tpu/harness/outputs.py:34-79``):
+    one daemon thread runs ``save_inferred_image`` on the frames
+    ``submit`` queues. ``zlib.compress`` releases the GIL, so encoding
+    overlaps the loop's device waits. The queue is bounded, so a slow disk
+    blocks ``submit`` instead of holding every pending frame. A failed
+    write raises on the next ``submit`` and again in ``close()``, which
+    writes what is queued and joins the thread; ``abandon()`` joins it
+    without writing the queued frames.
+
+    A queued frame is the array the loop passed, not a copy: a numpy view
+    of a tensor holds that tensor's storage, so a pinned host block stays
+    out of the caching allocator until its PNG is written."""
+
+    THREAD_NAME = "AsyncImageWriter"
+
+    def __init__(self, maxsize=128):
+        self._q = queue.Queue(maxsize)
+        self._err = None
+        self._n_failed = 0
+        self._drop = False
+        self._t = threading.Thread(target=self._loop, name=self.THREAD_NAME,
+                                   daemon=True)
+        self._t.start()
+
+    def _loop(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            if self._drop:
+                continue
+            try:
+                save_inferred_image(*item)
+            except Exception as e:  # noqa: BLE001 — raised by submit/close
+                # counted before the error is published, so a submit that
+                # sees the error reports at least this failure
+                self._n_failed += 1
+                if self._err is None:  # keep the first error
+                    self._err = e
+
+    def _raise_if_failed(self):
+        if self._err is not None:
+            raise OSError(f"{self._n_failed} image write(s) failed; "
+                          f"first error: {self._err}") from self._err
+
+    def submit(self, folder, image, idx):
+        # fail on the next frame, not after the whole sequence's device
+        # work, when the output path is broken
+        self._raise_if_failed()
+        self._q.put((folder, image, idx))
+
+    def close(self):
+        self._q.put(None)
+        self._t.join()
+        self._raise_if_failed()
+
+    def abandon(self):
+        """Stop the thread after an error in the loop: the frames still
+        queued are dropped (their sequence gets no ``done.json``), and
+        write errors are not raised over the loop's own."""
+        self._drop = True
+        self._q.put(None)
+        self._t.join()

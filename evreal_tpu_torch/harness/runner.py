@@ -625,9 +625,23 @@ def make_tracker(eval_config, dataset_name, sequence, method_name, specs):
         no_ref_metric_names={s.name for s in specs if s.no_ref})
 
 
+@contextlib.contextmanager
+def abandon_on_error(trackers):
+    """When the eval loop raises, stop the trackers' frame writers (their
+    queued frames are dropped and no ``done.json`` is written, as in the
+    JAX package) so that no writer thread outlives the call."""
+    try:
+        yield
+    except BaseException:
+        for tracker in trackers:
+            tracker.abandon()
+        raise
+
+
 def finish_tracker(tracker, eval_config, dropped):
     """Close a sequence's outputs (``dropped``: the metrics dropped at
-    runtime), then make its videos when asked."""
+    runtime; ``finalize`` waits for the frame writer), then make its
+    videos when asked, from every written frame."""
     tracker.finalize(dropped)
     if eval_config.get("create_video", False):
         tracker.create_video()
@@ -814,8 +828,8 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
 
     timings = timings if timings is not None else TimingLog()
     n_chunks = -(-len(proc) // chunk_t)
-    with DeviceTimer(timings, method_name, len(proc),
-                     runner.device) as timer:
+    with abandon_on_error([tracker]), DeviceTimer(
+            timings, method_name, len(proc), runner.device) as timer:
         run_chunks(n_chunks, dispatch, drain, timer)
     finish_tracker(tracker, eval_config, contain.dead)
     return tracker.get_num_quan_evaluations(), tracker.get_mean_scores()

@@ -9,9 +9,11 @@ no-reference one; a sequence without reference frames keeps only those),
 drops non-finite scores, and reports the ``-1`` no-result sentinel for a
 metric with no scores or dropped at runtime (kept out of dataset means by
 the caller). In color mode it saves frames and records
-no scores (the metric files stay empty). It writes the JAX package's
-``done.json`` completion record, which ``EVREAL_RESUME`` reads back
-(``load_completed``), and makes the folder's videos.
+no scores (the metric files stay empty). Frames go to a background
+``AsyncImageWriter``, started at the first saved frame. It writes the JAX
+package's ``done.json`` completion record, which ``EVREAL_RESUME`` reads
+back (``load_completed``), only once every frame is written, and makes
+the folder's videos.
 """
 
 import json
@@ -19,7 +21,7 @@ import math
 import os
 import shutil
 
-from evreal_tpu_torch.harness.outputs import save_inferred_image, truncate
+from evreal_tpu_torch.harness.outputs import AsyncImageWriter, truncate
 from evreal_tpu_torch.harness.video import create_vid_from_recon_folder
 
 
@@ -121,6 +123,7 @@ class EvalMetricsTracker:
         self.quan_eval_indices = []
         self._files = {}
         self._custom = set()
+        self._image_writer = None
         os.makedirs(output_dir, exist_ok=True)
         if self.save_processed_images:
             os.makedirs(self.processed_output_dir, exist_ok=True)
@@ -152,10 +155,10 @@ class EvalMetricsTracker:
             ref_ts = img_ts
         self._append("timestamps.txt", "{} {:.15f}\n".format(idx, img_ts))
         if img_u8 is not None and self.save_images:
-            save_inferred_image(self.output_dir, img_u8, idx)
+            self._writer().submit(self.output_dir, img_u8, idx)
         if processed_img is not None and self.save_processed_images:
-            save_inferred_image(self.processed_output_dir, processed_img,
-                                idx)
+            self._writer().submit(self.processed_output_dir, processed_img,
+                                  idx)
         inside_cut = self.start_time <= img_ts <= self.end_time
         tol_ok = (self.only_no_ref
                   or abs(ref_ts - img_ts) * 1000 <= self.ts_tol_ms)
@@ -176,15 +179,31 @@ class EvalMetricsTracker:
             self._custom.add(metric_name)
         self._append(name, "{} {:.5f}\n".format(idx, metric_value))
 
+    def _writer(self):
+        if self._image_writer is None:
+            self._image_writer = AsyncImageWriter()
+        return self._image_writer
+
+    def _close_files(self):
+        for f in self._files.values():
+            f.close()
+        self._files = {}
+
     def finalize(self, dropped=()):
-        """Close the text files and write the ``done.json`` record.
+        """Write the queued frames, close the text files and write the
+        ``done.json`` record. A failed frame write raises here, after the
+        text files are closed and before the record, so an
+        ``EVREAL_RESUME`` rerun runs the sequence again.
         ``dropped``: metrics the runner dropped at runtime. They stay out
         of the record (an ``EVREAL_RESUME`` rerun scores them again) and
         their means report -1, as does a metric with no score despite
         evaluated frames (dropped by validation)."""
-        for f in self._files.values():
-            f.close()
-        self._files = {}
+        writer, self._image_writer = self._image_writer, None
+        try:
+            if writer is not None:
+                writer.close()
+        finally:
+            self._close_files()
         self._dropped = set(dropped)
         complete = [m for m in self.metric_names if m not in self._dropped
                     and (self.scores[m] or not self.quan_eval_indices)]
@@ -194,6 +213,17 @@ class EvalMetricsTracker:
             json.dump({"num_evaluated": self.get_num_quan_evaluations(),
                        "mean_scores": mean_scores, "metrics": complete,
                        "settings": self.run_settings}, f)
+
+    def abandon(self):
+        """After an error in the eval loop: stop the frame writer without
+        writing its queued frames, close the text files, write no
+        ``done.json``."""
+        writer, self._image_writer = self._image_writer, None
+        try:
+            if writer is not None:
+                writer.abandon()
+        finally:
+            self._close_files()
 
     def get_num_quan_evaluations(self):
         return len(self.quan_eval_indices)
