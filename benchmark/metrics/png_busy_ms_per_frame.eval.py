@@ -1,0 +1,3 @@
+"""``lib/spans.py:png_busy_ms_per_frame`` over the eval cells (``eval_fps``)."""
+
+from benchmark.lib.spans import png_busy_ms_per_frame as read  # noqa: F401

@@ -63,7 +63,18 @@ from evreal_tpu_torch.harness.runner import (
     to_host,
     usable_metrics,
 )
-from evreal_tpu_torch.harness.timers import DeviceTimer, TimingLog
+from evreal_tpu_torch.harness.timers import (
+    FETCH,
+    PACK,
+    RECORD,
+    SCORE,
+    SETUP,
+    STEP,
+    UPLOAD,
+    DeviceTimer,
+    TimingLog,
+    span,
+)
 from evreal_tpu_torch.metrics import registry
 from evreal_tpu_torch.parallel.mesh import (
     dp_devices,
@@ -130,7 +141,8 @@ class ShardedRunner:
     """A lockstep group's lanes over a mesh's dp entries: one
     ``BatchedRunner`` per entry, over a contiguous block of the lanes, on
     the entry's device with that device's model replica. The one host
-    thread enqueues each shard's work in turn (``run_parts``)."""
+    thread uploads each shard's lanes, then enqueues each shard's work in
+    turn (``upload_parts``, ``run_parts``)."""
 
     def __init__(self, runners):
         self.runners = list(runners)
@@ -158,16 +170,21 @@ def part_states(runner):
     return [r.init_state() for r, _ in runner.parts()]
 
 
-def run_parts(runner, states, bufs, valid_t):
+def upload_parts(runner, bufs):
     """One chunk of host buffers (lanes first) over ``runner.parts()``:
-    each part's block of lanes uploaded to its device and run there (one
-    voxelizer launch a part). Updates ``states`` in place; returns each
-    part's clipped frames ``(lanes, valid_t, H, W)`` on its device."""
+    each part's block of lanes uploaded to its device."""
+    return [r.upload({k: v[block] for k, v in bufs.items()})
+            for r, block in runner.parts()]
+
+
+def run_parts(runner, states, parts_bufs, valid_t):
+    """One chunk over ``runner.parts()``: each part's device buffers
+    (``upload_parts``) run on its device (one voxelizer launch a part).
+    Updates ``states`` in place; returns each part's clipped frames
+    ``(lanes, valid_t, H, W)`` on its device."""
     out = []
-    for p, (r, block) in enumerate(runner.parts()):
-        states[p], _, clipped = r.run(
-            states[p], r.upload({k: v[block] for k, v in bufs.items()}),
-            valid_t)
+    for p, ((r, _), bufs) in enumerate(zip(runner.parts(), parts_bufs)):
+        states[p], _, clipped = r.run(states[p], bufs, valid_t)
         out.append(clipped)
     return out
 
@@ -197,41 +214,46 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
             dataset_name, eval_config, method_name, bundle, method_config,
             keep, metrics, timings) if keep else [])
         return [d if d is not None else next(rest) for d in done]
-    hist_eq = eval_config.get("histeq", "none")
-    seqs = [s["dataset"] for s in sequences]
-    n = len(seqs)
-    resolution = tuple(seqs[0].sensor_resolution)
-    mesh = eval_mesh_for(bundle.device)
-    # a dp-divisible lane count; the padding lanes are empty windows whose
-    # outputs are never read (evreal_tpu/harness/batched.py:353-357)
-    n_pad = pad_lanes(n, len(dp_devices(mesh))) if mesh is not None else n
-    runner = bundle.batched_runner_for(resolution, method_config,
-                                       seqs[0].num_bins, n_pad, mesh)
-    parts = runner.parts()
-    first = parts[0][0]
-    trackers = [make_tracker(eval_config, dataset_name, s, method_name,
-                             specs) for s in sequences]
-    ref_lanes = [j for j, seq in enumerate(seqs) if seq.has_images]
-    use = usable_metrics(first, specs if ref_lanes else no_ref_specs(specs))
-    contain = MetricContainment("group")
-    eval_infer_all = eval_config.get("eval_infer_all", False)
-    metas_all = [seq.windows() for seq in seqs]
-    procs = [gate_windows(metas, s["start_time_s"], s["end_time_s"],
-                          eval_infer_all)
-             for s, metas in zip(sequences, metas_all)]
+    timings = timings if timings is not None else TimingLog()
+    with span(SETUP):
+        hist_eq = eval_config.get("histeq", "none")
+        seqs = [s["dataset"] for s in sequences]
+        n = len(seqs)
+        resolution = tuple(seqs[0].sensor_resolution)
+        mesh = eval_mesh_for(bundle.device)
+        # a dp-divisible lane count; the padding lanes are empty windows
+        # whose outputs are never read
+        # (evreal_tpu/harness/batched.py:353-357)
+        n_pad = (pad_lanes(n, len(dp_devices(mesh))) if mesh is not None
+                 else n)
+        runner = bundle.batched_runner_for(resolution, method_config,
+                                           seqs[0].num_bins, n_pad, mesh)
+        parts = runner.parts()
+        first = parts[0][0]
+        trackers = [make_tracker(eval_config, dataset_name, s, method_name,
+                                 specs) for s in sequences]
+        ref_lanes = [j for j, seq in enumerate(seqs) if seq.has_images]
+        use = usable_metrics(first,
+                             specs if ref_lanes else no_ref_specs(specs))
+        contain = MetricContainment("group")
+        eval_infer_all = eval_config.get("eval_infer_all", False)
+        metas_all = [seq.windows() for seq in seqs]
+        procs = [gate_windows(metas, s["start_time_s"], s["end_time_s"],
+                              eval_infer_all)
+                 for s, metas in zip(sequences, metas_all)]
 
-    chunk_t = runner.chunk_t
-    capacity = plan_capacity(metas_all[j][i]["event_count"]
-                             for j in range(n) for i in procs[j])
-    dtypes = event_dtypes(seqs)
-    pool = alloc_buffers((n_pad, chunk_t), capacity, dtypes)
-    ref_dtype = _ref_dtype(seqs, procs, metas_all)
-    save_images = any(t.save_images for t in trackers)
-    # hist-eq: the clipped frames come to the host to be equalized
-    equalize = hist_eq != "none" and (
-        bool(use) or any(t.save_processed_images for t in trackers))
-    states = part_states(runner)
-    real_parts = sum(1 for _, block in parts if block.start < n)
+        chunk_t = runner.chunk_t
+        capacity = plan_capacity(metas_all[j][i]["event_count"]
+                                 for j in range(n) for i in procs[j])
+        dtypes = event_dtypes(seqs)
+        pool = alloc_buffers((n_pad, chunk_t), capacity, dtypes)
+        ref_dtype = _ref_dtype(seqs, procs, metas_all)
+        save_images = any(t.save_images for t in trackers)
+        # hist-eq: the clipped frames come to the host to be equalized
+        equalize = hist_eq != "none" and (
+            bool(use) or any(t.save_processed_images for t in trackers))
+        states = part_states(runner)
+        real_parts = sum(1 for _, block in parts if block.start < n)
 
     def load_refs(chunk_idxs, valid_t, lanes):
         """(len(lanes), valid_t, H, W) reference frames of ``lanes`` (each
@@ -275,24 +297,33 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
         chunk_max = max((metas_all[j][i]["event_count"]
                          for j in range(n) for i in chunk_idxs[j]),
                         default=0)
-        if chunk_max <= capacity:
-            cap_c, bufs, zeroed = capacity, pool, False
-            # ended and padding lanes must voxelize as empty windows, not
-            # as whatever the pool held for an earlier chunk
-            bufs["count"][:] = 0
-        else:  # outlier chunk (rare by plan_capacity): one-off buffers
-            cap_c, bufs = outlier_buffers((n_pad, chunk_t), chunk_max,
-                                          dtypes)
-            zeroed = True
-        for j, (seq, idxs) in enumerate(zip(seqs, chunk_idxs)):
-            if idxs:
-                pack_windows(seq, idxs, capacity=cap_c,
-                             out={key: v[j, :len(idxs)]
-                                  for key, v in bufs.items()},
-                             metas=[metas_all[j][i] for i in idxs],
-                             out_zeroed=zeroed)
+        with span(PACK):
+            if chunk_max <= capacity:
+                cap_c, bufs, zeroed = capacity, pool, False
+                # ended and padding lanes must voxelize as empty windows,
+                # not as whatever the pool held for an earlier chunk
+                bufs["count"][:] = 0
+            else:  # outlier chunk (rare by plan_capacity): one-off buffers
+                cap_c, bufs = outlier_buffers((n_pad, chunk_t), chunk_max,
+                                              dtypes)
+                zeroed = True
+            for j, (seq, idxs) in enumerate(zip(seqs, chunk_idxs)):
+                if idxs:
+                    pack_windows(seq, idxs, capacity=cap_c,
+                                 out={key: v[j, :len(idxs)]
+                                      for key, v in bufs.items()},
+                                 metas=[metas_all[j][i] for i in idxs],
+                                 out_zeroed=zeroed)
+        with span(UPLOAD):
+            parts_bufs = upload_parts(runner, bufs)
+        with span(STEP):
+            clipped_parts = run_parts(runner, states, parts_bufs, valid_t)
+        del parts_bufs  # back to the allocator before the scoring's buffers
+        real_windows = sum(len(idxs) for idxs in chunk_idxs)
+        # every lane, ended and padding ones too, steps valid_t windows
+        timings.count("lane_windows.real", real_windows)
+        timings.count("lane_windows.computed", n_pad * valid_t)
         out = {}
-        clipped_parts = run_parts(runner, states, bufs, valid_t)
         for p, ((r, block), clipped) in enumerate(zip(parts, clipped_parts)):
             real = min(block.stop, n) - block.start
             if real <= 0:  # padding lanes only: nothing is fetched
@@ -303,14 +334,16 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
             if equalize:
                 out[p, "clipped"] = clipped
             elif use:
-                mine = [j for j in ref_lanes if block.start <= j < block.stop]
-                refs = (r.upload({"r": load_refs(chunk_idxs, valid_t,
-                                                 mine)})["r"]
-                        if mine else None)
-                got = score(r, clipped, refs, [j - block.start for j in mine])
+                with span(SCORE):
+                    mine = [j for j in ref_lanes
+                            if block.start <= j < block.stop]
+                    refs = (r.upload({"r": load_refs(chunk_idxs, valid_t,
+                                                     mine)})["r"]
+                            if mine else None)
+                    got = score(r, clipped, refs,
+                                [j - block.start for j in mine])
                 out.update({(p, name): v for name, v in got.items()})
-        return ((chunk_idxs,) + to_host(out),
-                sum(len(idxs) for idxs in chunk_idxs))
+        return (chunk_idxs,) + to_host(out), real_windows
 
     def equalize_chunk(chunk_idxs, clipped, host):
         """Equalized frames (N, T, H, W) of the lanes' windows; with
@@ -339,25 +372,30 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
     def drain(entry):
         chunk_idxs, parts_host, events = entry
         host = {}
+        with span(FETCH):
+            fetched = from_host(parts_host, events)
         # the parts' real lanes, in lane order, per output name; a metric
         # that one part dropped at runtime is dropped from the whole chunk
-        for (_, name), v in from_host(parts_host, events).items():
+        for (_, name), v in fetched.items():
             host.setdefault(name, []).append(v)
         host = {name: np.concatenate(vs) for name, vs in host.items()
                 if len(vs) == real_parts}
         images = host.pop("images", None)
         clipped = host.pop("clipped", None)
-        processed = (equalize_chunk(chunk_idxs, clipped, host)
-                     if clipped is not None else None)
-        for j, idxs in enumerate(chunk_idxs):
-            for r, i in enumerate(idxs):
-                record_window(trackers[j], seqs[j], i, metas_all[j][i],
-                              images[j, r] if images is not None else None,
-                              {key: v[j, r] for key, v in host.items()},
-                              processed[j, r] if processed is not None
-                              else None)
+        processed = None
+        if clipped is not None:
+            with span(SCORE):
+                processed = equalize_chunk(chunk_idxs, clipped, host)
+        with span(RECORD):
+            for j, idxs in enumerate(chunk_idxs):
+                for r, i in enumerate(idxs):
+                    record_window(trackers[j], seqs[j], i, metas_all[j][i],
+                                  images[j, r] if images is not None
+                                  else None,
+                                  {key: v[j, r] for key, v in host.items()},
+                                  processed[j, r] if processed is not None
+                                  else None)
 
-    timings = timings if timings is not None else TimingLog()
     max_chunks = max((-(-len(p) // chunk_t) for p in procs), default=0)
     total = sum(len(p) for p in procs)
     with abandon_on_error(trackers), DeviceTimer(
@@ -370,7 +408,7 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
         # finish every tracker even if one sequence's writer failed, so
         # that the others write their queued frames and stop their threads
         try:
-            finish_tracker(tracker, eval_config, contain.dead)
+            finish_tracker(tracker, eval_config, contain.dead, timings)
         except Exception as e:  # noqa: BLE001 — re-raised after the loop
             first_err = first_err or e
         results.append((tracker.get_num_quan_evaluations(),

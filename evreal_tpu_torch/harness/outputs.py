@@ -16,9 +16,12 @@ import os
 import queue
 import struct
 import threading
+import time
 import zlib
 
 import numpy as np
+
+from evreal_tpu_torch.harness.timers import PNG_WAIT, span
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -105,13 +108,16 @@ def decode_png_gray8(data):
 def save_inferred_image(folder, image, idx):
     """Write ``frame_{idx:010d}.png``: 8-bit grayscale for (H, W), RGB for
     (H, W, 3) BGR frames (as ``cv2.imwrite``); float images are quantized
-    as ``round(clip(img) * 255)`` (uint8 images are already quantized)."""
+    as ``round(clip(img) * 255)`` (uint8 images are already quantized).
+    Returns the file's bytes."""
     arr = (image if image.dtype == np.uint8
            else np.round(np.clip(image, 0, 1) * 255).astype(np.uint8))
     encode = encode_png_gray8 if arr.ndim == 2 else encode_png_bgr8
     path = os.path.join(folder, "frame_{:010d}.png".format(idx))
+    data = encode(arr)
     with open(path, "wb") as f:
-        f.write(encode(arr))
+        f.write(data)
+    return len(data)
 
 
 class AsyncImageWriter:
@@ -126,7 +132,12 @@ class AsyncImageWriter:
 
     A queued frame is the array the loop passed, not a copy: a numpy view
     of a tensor holds that tensor's storage, so a pinned host block stays
-    out of the caching allocator until its PNG is written."""
+    out of the caching allocator until its PNG is written.
+
+    ``frames``, ``bytes`` and ``busy_s`` total the frames written, their
+    encoded bytes and the thread's seconds in ``save_inferred_image``;
+    only the thread writes them, so read them after ``close()``
+    (``totals()``)."""
 
     THREAD_NAME = "AsyncImageWriter"
 
@@ -135,6 +146,7 @@ class AsyncImageWriter:
         self._err = None
         self._n_failed = 0
         self._drop = False
+        self.frames, self.bytes, self.busy_s = 0, 0, 0.0
         self._t = threading.Thread(target=self._loop, name=self.THREAD_NAME,
                                    daemon=True)
         self._t.start()
@@ -146,14 +158,19 @@ class AsyncImageWriter:
                 return
             if self._drop:
                 continue
+            t0 = time.perf_counter()
             try:
-                save_inferred_image(*item)
+                n_bytes = save_inferred_image(*item)
             except Exception as e:  # noqa: BLE001 — raised by submit/close
                 # counted before the error is published, so a submit that
                 # sees the error reports at least this failure
                 self._n_failed += 1
                 if self._err is None:  # keep the first error
                     self._err = e
+            else:
+                self.busy_s += time.perf_counter() - t0
+                self.frames += 1
+                self.bytes += n_bytes or 0  # a wrapped writer may say none
 
     def _raise_if_failed(self):
         if self._err is not None:
@@ -164,7 +181,14 @@ class AsyncImageWriter:
         # fail on the next frame, not after the whole sequence's device
         # work, when the output path is broken
         self._raise_if_failed()
-        self._q.put((folder, image, idx))
+        with span(PNG_WAIT):  # blocks only while the writer is behind
+            self._q.put((folder, image, idx))
+
+    def totals(self):
+        """{counter name: total} for ``TimingLog.count``, after
+        ``close()``."""
+        return {"png.frames": self.frames, "png.bytes": self.bytes,
+                "png.busy_s": self.busy_s}
 
     def close(self):
         self._q.put(None)

@@ -92,7 +92,21 @@ from evreal_tpu_torch.harness.tables import (
     color_progress,
     print_scores,
 )
-from evreal_tpu_torch.harness.timers import DeviceTimer, TimingLog
+from evreal_tpu_torch.harness.timers import (
+    BUNDLE,
+    FETCH,
+    OPEN,
+    PACK,
+    PNG_DRAIN,
+    RECORD,
+    SCORE,
+    SETUP,
+    STEP,
+    UPLOAD,
+    DeviceTimer,
+    TimingLog,
+    span,
+)
 from evreal_tpu_torch.harness.video import require_ffmpeg
 from evreal_tpu_torch.metrics import registry
 from evreal_tpu_torch.metrics.tracker import (
@@ -638,15 +652,22 @@ def abandon_on_error(trackers):
         raise
 
 
-def finish_tracker(tracker, eval_config, dropped):
+def finish_tracker(tracker, eval_config, dropped, timings=None):
     """Close a sequence's outputs (``dropped``: the metrics dropped at
     runtime; ``finalize`` waits for the frame writer), then make its
-    videos when asked, from every written frame."""
-    tracker.finalize(dropped)
-    if eval_config.get("create_video", False):
-        tracker.create_video()
-        if eval_config.get("histeq", "none") != "none":
-            tracker.create_processed_video()
+    videos when asked, from every written frame. The writer's totals
+    (``png.*``) go to ``timings``' counts when given."""
+    with span(PNG_DRAIN):
+        try:
+            tracker.finalize(dropped)
+        finally:
+            if timings is not None:
+                for name, n in tracker.writer_totals.items():
+                    timings.count(name, n)
+        if eval_config.get("create_video", False):
+            tracker.create_video()
+            if eval_config.get("histeq", "none") != "none":
+                tracker.create_processed_video()
 
 
 def event_dtypes(seqs):
@@ -749,89 +770,104 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
                         specs)
     if done is not None:
         return done
-    check_color_histeq(eval_config)
-    seq = sequence["dataset"]
-    color = eval_config.get("color", False)
-    hist_eq = eval_config.get("histeq", "none")
-    if color:
-        runner = bundle.color_runner_for(seq.sensor_resolution,
-                                         method_config, seq.num_bins)
-    else:
-        runner = bundle.runner_for(seq.sensor_resolution, method_config,
-                                   seq.num_bins)
-    tracker = make_tracker(eval_config, dataset_name, sequence, method_name,
-                           specs)
-    use = [] if color else usable_metrics(
-        runner, specs if seq.has_images else no_ref_specs(specs))
-    contain = MetricContainment("sequence")
+    timings = timings if timings is not None else TimingLog()
+    with span(SETUP):
+        check_color_histeq(eval_config)
+        seq = sequence["dataset"]
+        color = eval_config.get("color", False)
+        hist_eq = eval_config.get("histeq", "none")
+        if color:
+            runner = bundle.color_runner_for(seq.sensor_resolution,
+                                             method_config, seq.num_bins)
+        else:
+            runner = bundle.runner_for(seq.sensor_resolution, method_config,
+                                       seq.num_bins)
+        tracker = make_tracker(eval_config, dataset_name, sequence,
+                               method_name, specs)
+        use = [] if color else usable_metrics(
+            runner, specs if seq.has_images else no_ref_specs(specs))
+        contain = MetricContainment("sequence")
 
-    metas_all = seq.windows()
-    proc = gate_windows(metas_all, sequence["start_time_s"],
-                        sequence["end_time_s"],
-                        eval_config.get("eval_infer_all", False))
-    chunk_t = runner.chunk_t
-    capacity = plan_capacity(metas_all[i]["event_count"] for i in proc)
-    dtypes = event_dtypes([seq])
-    pool = alloc_buffers((chunk_t,), capacity, dtypes)
-    # hist-eq: the clipped frames come to the host to be equalized (and
-    # scored against equalized references, or saved under _processed)
-    equalize = hist_eq != "none" and (
-        bool(use) or tracker.save_processed_images)
-    state = runner.init_state()
+        metas_all = seq.windows()
+        proc = gate_windows(metas_all, sequence["start_time_s"],
+                            sequence["end_time_s"],
+                            eval_config.get("eval_infer_all", False))
+        chunk_t = runner.chunk_t
+        capacity = plan_capacity(metas_all[i]["event_count"] for i in proc)
+        dtypes = event_dtypes([seq])
+        pool = alloc_buffers((chunk_t,), capacity, dtypes)
+        # hist-eq: the clipped frames come to the host to be equalized (and
+        # scored against equalized references, or saved under _processed)
+        equalize = hist_eq != "none" and (
+            bool(use) or tracker.save_processed_images)
+        state = runner.init_state()
 
     def dispatch(k):
         nonlocal state
         chunk = proc[k * chunk_t:(k + 1) * chunk_t]
         valid_t = len(chunk)
         metas = [metas_all[i] for i in chunk]
-        chunk_max = max(m["event_count"] for m in metas)
-        if chunk_max <= capacity:
-            cap_c, bufs, zeroed = capacity, pool, False
-        else:  # outlier chunk (rare by plan_capacity): one-off buffers
-            cap_c, bufs = outlier_buffers((chunk_t,), chunk_max, dtypes)
-            zeroed = True
-        pack_windows(seq, chunk, capacity=cap_c,
-                     out={k: v[:valid_t] for k, v in bufs.items()},
-                     out_zeroed=zeroed, metas=metas)
-        bufs["count"][valid_t:] = 0  # ragged last chunk: empty windows
-        state, _, clipped = runner.run(state, runner.upload(bufs), valid_t)
+        with span(PACK):
+            chunk_max = max(m["event_count"] for m in metas)
+            if chunk_max <= capacity:
+                cap_c, bufs, zeroed = capacity, pool, False
+            else:  # outlier chunk (rare by plan_capacity): one-off buffers
+                cap_c, bufs = outlier_buffers((chunk_t,), chunk_max, dtypes)
+                zeroed = True
+            pack_windows(seq, chunk, capacity=cap_c,
+                         out={k: v[:valid_t] for k, v in bufs.items()},
+                         out_zeroed=zeroed, metas=metas)
+            bufs["count"][valid_t:] = 0  # ragged last chunk: empty windows
+        with span(UPLOAD):
+            dev_bufs = runner.upload(bufs)
+        with span(STEP):
+            state, _, clipped = runner.run(state, dev_bufs, valid_t)
+        del dev_bufs  # back to the allocator before the scoring's buffers
+        # one lane: every window stepped is a real one
+        timings.count("lane_windows.real", valid_t)
+        timings.count("lane_windows.computed", valid_t)
         out = {}
         if tracker.save_images:
             out["images"] = quantize_u8(clipped)
         if equalize:
             out["clipped"] = clipped
         elif use:
-            refs = (runner.upload({"r": reference_frames(seq, metas)})["r"]
-                    if seq.has_images else None)
-            out.update(runner.metric_scores(contain.live(use), clipped, refs,
-                                            contain))
+            with span(SCORE):
+                refs = (runner.upload({"r": reference_frames(seq, metas)})
+                        ["r"] if seq.has_images else None)
+                out.update(runner.metric_scores(contain.live(use), clipped,
+                                                refs, contain))
         return (chunk, metas) + to_host(out), valid_t
 
     def drain(entry):
         chunk, metas, host, event = entry
-        host = from_host(host, event)
+        with span(FETCH):
+            host = from_host(host, event)
         images = host.pop("images", None)
         clipped = host.pop("clipped", None)
         processed = None
         if clipped is not None:
-            processed = [histogram_equalization(c, hist_eq) for c in clipped]
-            if use:
-                host.update(score_on_device(
-                    runner, contain.live(use), np.stack(processed),
-                    equalized_refs(seq, metas, hist_eq) if seq.has_images
-                    else None, contain))
-        for j, (i, meta) in enumerate(zip(chunk, metas)):
-            record_window(tracker, seq, i, meta,
-                          images[j] if images is not None else None,
-                          {k: v[j] for k, v in host.items()},
-                          processed[j] if processed is not None else None)
+            with span(SCORE):
+                processed = [histogram_equalization(c, hist_eq)
+                             for c in clipped]
+                if use:
+                    host.update(score_on_device(
+                        runner, contain.live(use), np.stack(processed),
+                        equalized_refs(seq, metas, hist_eq)
+                        if seq.has_images else None, contain))
+        with span(RECORD):
+            for j, (i, meta) in enumerate(zip(chunk, metas)):
+                record_window(tracker, seq, i, meta,
+                              images[j] if images is not None else None,
+                              {k: v[j] for k, v in host.items()},
+                              processed[j] if processed is not None
+                              else None)
 
-    timings = timings if timings is not None else TimingLog()
     n_chunks = -(-len(proc) // chunk_t)
     with abandon_on_error([tracker]), DeviceTimer(
             timings, method_name, len(proc), runner.device) as timer:
         run_chunks(n_chunks, dispatch, drain, timer)
-    finish_tracker(tracker, eval_config, contain.dead)
+    finish_tracker(tracker, eval_config, contain.dead, timings)
     return tracker.get_num_quan_evaluations(), tracker.get_mean_scores()
 
 
@@ -881,7 +917,8 @@ def eval_method_with_config(eval_config, method_name, datasets, metrics,
     print(color_progress("Starting method " + method_name))
     method_metrics = []
     try:
-        bundle = MethodBundle(method_name, method_config, device)
+        with span(BUNDLE):
+            bundle = MethodBundle(method_name, method_config, device)
     except Exception as e:  # noqa: BLE001 — containment, reference eval.py:344-352
         print(color_error(f"Exception while getting method {method_name}"))
         print(color_error(str(e)))
@@ -981,8 +1018,9 @@ def _evaluate(method_names, eval_config_names, dataset_names, metrics,
     dataset_configs = get_dataset_configs(dataset_names)
     results = {}
     for eval_config in eval_configs:
-        datasets = get_datasets(dataset_configs,
-                                eval_config.get("dataset_kwargs", {}))
+        with span(OPEN):
+            datasets = get_datasets(dataset_configs,
+                                    eval_config.get("dataset_kwargs", {}))
         info = (f"evaluating {', '.join(method_names)} on "
                 f"{', '.join(dataset_names)} with {eval_config['name']} "
                 f"evaluation config")

@@ -8,12 +8,57 @@ device the run uses (each card of a mesh) is fenced with
 steady-state ms per frame of the slowest card. Samples go to the
 ``TimingLog`` the caller passes; ``summary()`` is frame-count weighted
 across sequences.
+
+The eval loops also mark their stages with ``span(name)`` (the ``SPANS``
+below): under an active ``torch.profiler`` session a span is a host event
+of that name in the same trace as the device's kernels; otherwise it is
+one shared no-op context. And they count, on
+the ``TimingLog`` (``counts``), the lane-windows a lockstep group runs
+against the real ones and the PNG writers' frames, bytes and thread
+seconds.
 """
 
+import contextlib
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+# the spans of the eval loop (``harness/runner.py``, ``harness/batched.py``)
+OPEN = "evreal.open"            # an eval config's datasets opened
+BUNDLE = "evreal.bundle"        # MethodBundle: .pth read, model built, cast
+SETUP = "evreal.setup"          # a group's or sequence's set-up
+PACK = "evreal.pack"            # a chunk's windows packed into the pool
+UPLOAD = "evreal.upload"        # the chunk pinned and copied to the device
+STEP = "evreal.step"            # voxelizer, model step, post-norm enqueued
+SCORE = "evreal.score"          # reference frames loaded, uploaded, scored
+FETCH = "evreal.fetch"          # the host waits for the chunk's copies back
+RECORD = "evreal.record"        # score rows written, frames handed off
+PNG_WAIT = "evreal.png.wait"    # a frame queued to its writer (in RECORD)
+PNG_DRAIN = "evreal.png.drain"  # a sequence's writer joined, files closed
+SPANS = (OPEN, BUNDLE, SETUP, PACK, UPLOAD, STEP, SCORE, FETCH, RECORD,
+         PNG_WAIT, PNG_DRAIN)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name):
+    """A profiler event ``name`` over the ``with`` block when a
+    ``torch.profiler`` session is active on this thread, else one shared
+    no-op context (no allocation; the check costs a fraction of a
+    microsecond).
+
+    The event is ``_RecordFunctionFast``'s (the one torch's compiled code
+    emits; a ``cpu_op`` in the Chrome trace), not ``record_function``'s:
+    that dispatches a torch op on entry and exit, which releases the
+    interpreter lock, and each time the loop must win it back from the
+    PNG writer threads (on an H100 machine's host, 147 us a span beside
+    one busy thread, against 3 us for this one)."""
+    if _profiler_enabled():
+        return _RecordFunctionFast(name)
+    return _OFF
 
 
 def fence(device):
@@ -23,10 +68,21 @@ def fence(device):
 
 
 class TimingLog:
-    """Per-name samples ``[(elapsed_ms, frames), ...]``."""
+    """Per-name samples ``[(elapsed_ms, frames), ...]``, and ``counts`` of
+    the loop's work, updated on the loop's thread:
+    ``lane_windows.real`` (windows evaluated) and
+    ``lane_windows.computed`` (lanes run times the windows stepped, each
+    chunk; equal on the single-sequence path), ``png.frames``,
+    ``png.bytes`` and ``png.busy_s`` (the PNG writers' frames, encoded
+    bytes and thread seconds, added when a sequence's writer is
+    joined)."""
 
     def __init__(self):
         self.samples = defaultdict(list)
+        self.counts = Counter()
+
+    def count(self, name, n=1):
+        self.counts[name] += n
 
     def ms_per_frame(self, name):
         samples = self.samples.get(name, [])
@@ -39,6 +95,17 @@ class TimingLog:
             frames = sum(f for _, f in samples)
             lines.append(f"{name}: {self.ms_per_frame(name):.2f} ms/frame "
                          f"({frames} frames, {len(samples)} sequences)")
+        real, computed = (self.counts["lane_windows.real"],
+                          self.counts["lane_windows.computed"])
+        if computed:
+            lines.append(f"lockstep: {real} of {computed} lane-windows "
+                         f"real ({100.0 * real / computed:.1f}%)")
+        frames, busy_s = self.counts["png.frames"], self.counts["png.busy_s"]
+        if frames:
+            lines.append(f"png writers: {frames} frames, "
+                         f"{self.counts['png.bytes']} bytes, {busy_s:.3f} "
+                         f"thread s ({1000.0 * busy_s / frames:.2f} "
+                         f"ms/frame)")
         return lines
 
 

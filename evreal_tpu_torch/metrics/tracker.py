@@ -124,6 +124,9 @@ class EvalMetricsTracker:
         self._files = {}
         self._custom = set()
         self._image_writer = None
+        # the frame writer's totals once ``finalize`` has joined it
+        # (``AsyncImageWriter.totals``); none when no frame was saved
+        self.writer_totals = {}
         os.makedirs(output_dir, exist_ok=True)
         if self.save_processed_images:
             os.makedirs(self.processed_output_dir, exist_ok=True)
@@ -203,6 +206,8 @@ class EvalMetricsTracker:
             if writer is not None:
                 writer.close()
         finally:
+            if writer is not None:
+                self.writer_totals = writer.totals()
             self._close_files()
         self._dropped = set(dropped)
         complete = [m for m in self.metric_names if m not in self._dropped

@@ -58,6 +58,7 @@ from evreal_tpu_torch.harness.batched import (
     eval_mesh_for,
     part_states,
     run_parts,
+    upload_parts,
 )
 from evreal_tpu_torch.harness.config import get_method_config
 from evreal_tpu_torch.harness.runner import (
@@ -326,8 +327,8 @@ class ReconEngine:
                              out={k: v[j] for k, v in bufs.items()})
             served = sum(1 for w in windows if w is not None)
             with self._lock, torch.no_grad():
-                outs = [c[:, 0] for c in run_parts(g.runner, g.state, bufs,
-                                                   1)]
+                outs = [c[:, 0] for c in run_parts(
+                    g.runner, g.state, upload_parts(g.runner, bufs), 1)]
                 g.frames += served
                 self._total_frames += served
                 if u8:
