@@ -18,12 +18,23 @@ Per chunk of ``chunk_t`` windows:
     full-reference metrics on the lanes with reference frames, the
     no-reference ones on every lane
 
-Lanes whose sequence has ended, and the windows past a lane's end in a
-ragged chunk, voxelize as empty windows (``count`` is cleared first) and
-their outputs are never read.
+The group narrows to its running lanes at chunk boundaries: chunk k runs
+only the m lanes that still have windows in it, packed into the pool's
+first m rows, so the upload, the voxelizer launch, every model step, the
+post-norm, the u8 frames and the scores are of batch m. Lanes end in
+order of their window counts (``gate_windows`` keeps a prefix), so the
+running set only shrinks; when it does, each lane-first tensor of the
+recurrent state is cut to the lanes left (``narrow_lanes``), and
+``TimingLog`` counts the lanes dropped (``lockstep.narrowed``). The
+windows past a lane's end in a ragged chunk voxelize as empty windows
+(``count`` is cleared first) and their outputs are never read. The
+JAX package runs every lane to the end, as a new batch shape means a
+new XLA compile there; in eager PyTorch a narrower batch costs nothing
+to set up.
 
-Hist-eq configs equalize each lane's clipped frames and f32 references on
-the host and score the chunk's equalized (N, T) pairs in one device call.
+Hist-eq configs equalize each running lane's clipped frames and f32
+references on the host and score the chunk's equalized (m, T) pairs in
+one device call.
 Under ``EVREAL_RESUME`` finished lanes are skipped and the rest run as a
 smaller group; each lane makes its own videos at the end.
 
@@ -34,7 +45,9 @@ blocks, one per card (``ShardedRunner``): per chunk the host uploads
 each block to its card, where one voxelizer launch, the model steps, the
 post-norm, the u8 frames and the (lanes, T) scores run with that card's
 model replica. Only the real lanes' results come back, in lane order;
-the padding lanes voxelize as empty windows and are never fetched.
+the padding lanes voxelize as empty windows and are never fetched. A
+mesh group does not narrow: its blocks stay padded and dp-divisible, and
+every lane, ended ones too, runs to the longest lane's end.
 """
 
 import os
@@ -126,9 +139,11 @@ class BatchedRunner(MethodRunner):
 
     @torch.no_grad()
     def run(self, state, bufs, valid_t):
-        """One chunk: voxelize all N * T windows in one launch, then run
-        the first ``valid_t`` windows of every lane. Returns (state,
-        images, clipped), each image tensor (N, valid_t, H, W)."""
+        """One chunk of the M lanes that ``bufs`` holds (``count`` is (M,
+        T); M is at most ``lanes``, and ``state`` holds the same M):
+        voxelize all M * T windows in one launch, then run the first
+        ``valid_t`` windows of every lane. Returns (state, images,
+        clipped), each image tensor (M, valid_t, H, W)."""
         n, t = bufs["count"].shape
         vox = self.voxelize({k: v.reshape((n * t,) + tuple(v.shape[2:]))
                              for k, v in bufs.items()})
@@ -189,6 +204,21 @@ def run_parts(runner, states, parts_bufs, valid_t):
     return out
 
 
+def narrow_lanes(state, keep):
+    """A recurrent state cut to the lanes ``keep`` (a device index
+    tensor) of its lane axis: every tensor of one or more dimensions in
+    the tree of dicts, lists and tuples (E2VID's ``(h, c)`` pairs,
+    FireNet's dicts, ET-Net's lists) is lane-first; a 0-d tensor, such as
+    SPADE-E2VID's ``initialized`` flag, belongs to every lane and stays."""
+    if isinstance(state, dict):
+        return {k: narrow_lanes(v, keep) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(narrow_lanes(v, keep) for v in state)
+    if isinstance(state, torch.Tensor) and state.dim():
+        return state.index_select(0, keep)
+    return state
+
+
 def _ref_dtype(seqs, procs, metas_all):
     """uint8 reference pools when every image-bearing sequence stores u8
     frames, else f32 (``evreal_tpu/harness/batched.py:394-404``)."""
@@ -232,9 +262,8 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
         first = parts[0][0]
         trackers = [make_tracker(eval_config, dataset_name, s, method_name,
                                  specs) for s in sequences]
-        ref_lanes = [j for j, seq in enumerate(seqs) if seq.has_images]
-        use = usable_metrics(first,
-                             specs if ref_lanes else no_ref_specs(specs))
+        use = usable_metrics(first, specs if any(
+            seq.has_images for seq in seqs) else no_ref_specs(specs))
         contain = MetricContainment("group")
         eval_infer_all = eval_config.get("eval_infer_all", False)
         metas_all = [seq.windows() for seq in seqs]
@@ -254,10 +283,15 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
             bool(use) or any(t.save_processed_images for t in trackers))
         states = part_states(runner)
         real_parts = sum(1 for _, block in parts if block.start < n)
+        # the lanes the state holds, in row order: one part narrows to its
+        # running lanes; a mesh keeps its padded, dp-divisible blocks
+        narrow = len(parts) == 1
+        running = list(range(n))
 
     def load_refs(chunk_idxs, valid_t, lanes):
-        """(len(lanes), valid_t, H, W) reference frames of ``lanes`` (each
-        with frames); rows past a lane's end stay zero (never recorded)."""
+        """(len(lanes), valid_t, H, W) reference frames of ``lanes`` (the
+        group's lane numbers, each with frames); rows past a lane's end
+        stay zero (never recorded)."""
         refs = np.zeros((len(lanes), valid_t) + resolution, ref_dtype)
         for r_lane, j in enumerate(lanes):
             for r, i in enumerate(chunk_idxs[j]):
@@ -268,9 +302,10 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
         return refs
 
     def score(r, imgs, refs, with_refs):
-        """{name: (L, T) scores} of the L lanes' frames ``imgs`` on ``r``'s
-        device: the no-reference metrics on every lane, the full-reference
-        ones on the lanes ``with_refs`` (indices into ``imgs``) against
+        """{name: (L, T) scores} of the frames ``imgs`` of L rows (the
+        chunk's running lanes, or a shard's block of them) on ``r``'s
+        device: the no-reference metrics on every row, the full-reference
+        ones on the rows ``with_refs`` (indices into ``imgs``) against
         ``refs`` (one row each), NaN on the others (never recorded
         there)."""
         live = contain.live(use)
@@ -292,25 +327,39 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
         return out
 
     def dispatch(k):
+        """Chunk k over its running lanes: row p of the pool, the state
+        and every output is lane ``lanes[p]`` (a mesh: every lane, then
+        the padding rows)."""
+        nonlocal running
         chunk_idxs = [proc[k * chunk_t:(k + 1) * chunk_t] for proc in procs]
-        valid_t = max(len(idxs) for idxs in chunk_idxs)
+        live = [j for j in running if chunk_idxs[j]]
+        if narrow and len(live) < len(running):
+            keep = torch.tensor([running.index(j) for j in live],
+                                device=first.device)
+            states[0] = narrow_lanes(states[0], keep)
+            timings.count("lockstep.narrowed", len(running) - len(live))
+            running = live
+        lanes, rows = running, (len(running) if narrow else n_pad)
+        valid_t = max(len(chunk_idxs[j]) for j in lanes)
         chunk_max = max((metas_all[j][i]["event_count"]
-                         for j in range(n) for i in chunk_idxs[j]),
-                        default=0)
+                         for j in lanes for i in chunk_idxs[j]), default=0)
         with span(PACK):
             if chunk_max <= capacity:
-                cap_c, bufs, zeroed = capacity, pool, False
-                # ended and padding lanes must voxelize as empty windows,
-                # not as whatever the pool held for an earlier chunk
+                cap_c, zeroed = capacity, False
+                bufs = {key: v[:rows] for key, v in pool.items()}
+                # the windows past a lane's end (a mesh: ended and padding
+                # lanes too) must voxelize as empty windows, not as
+                # whatever the pool held for an earlier chunk
                 bufs["count"][:] = 0
             else:  # outlier chunk (rare by plan_capacity): one-off buffers
-                cap_c, bufs = outlier_buffers((n_pad, chunk_t), chunk_max,
+                cap_c, bufs = outlier_buffers((rows, chunk_t), chunk_max,
                                               dtypes)
                 zeroed = True
-            for j, (seq, idxs) in enumerate(zip(seqs, chunk_idxs)):
+            for p, j in enumerate(lanes):
+                idxs = chunk_idxs[j]
                 if idxs:
-                    pack_windows(seq, idxs, capacity=cap_c,
-                                 out={key: v[j, :len(idxs)]
+                    pack_windows(seqs[j], idxs, capacity=cap_c,
+                                 out={key: v[p, :len(idxs)]
                                       for key, v in bufs.items()},
                                  metas=[metas_all[j][i] for i in idxs],
                                  out_zeroed=zeroed)
@@ -320,12 +369,13 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
             clipped_parts = run_parts(runner, states, parts_bufs, valid_t)
         del parts_bufs  # back to the allocator before the scoring's buffers
         real_windows = sum(len(idxs) for idxs in chunk_idxs)
-        # every lane, ended and padding ones too, steps valid_t windows
+        # every row, a mesh's ended and padding lanes too, steps valid_t
+        # windows
         timings.count("lane_windows.real", real_windows)
-        timings.count("lane_windows.computed", n_pad * valid_t)
+        timings.count("lane_windows.computed", rows * valid_t)
         out = {}
         for p, ((r, block), clipped) in enumerate(zip(parts, clipped_parts)):
-            real = min(block.stop, n) - block.start
+            real = min(block.stop, len(lanes)) - block.start
             if real <= 0:  # padding lanes only: nothing is fetched
                 continue
             clipped = clipped[:real]
@@ -335,46 +385,49 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
                 out[p, "clipped"] = clipped
             elif use:
                 with span(SCORE):
-                    mine = [j for j in ref_lanes
-                            if block.start <= j < block.stop]
-                    refs = (r.upload({"r": load_refs(chunk_idxs, valid_t,
-                                                     mine)})["r"]
+                    mine = [q for q in range(block.start, block.start + real)
+                            if seqs[lanes[q]].has_images]
+                    refs = (r.upload({"r": load_refs(
+                        chunk_idxs, valid_t, [lanes[q] for q in mine])})["r"]
                             if mine else None)
                     got = score(r, clipped, refs,
-                                [j - block.start for j in mine])
+                                [q - block.start for q in mine])
                 out.update({(p, name): v for name, v in got.items()})
-        return (chunk_idxs,) + to_host(out), real_windows
+        return (chunk_idxs, lanes) + to_host(out), real_windows
 
-    def equalize_chunk(chunk_idxs, clipped, host):
-        """Equalized frames (N, T, H, W) of the lanes' windows; with
-        metrics, the scores of the equalized frames (against the equalized
-        references on the lanes that have them, on the first shard's
-        device) go into ``host``. Rows past a lane's end stay zero (never
-        recorded)."""
+    def equalize_chunk(chunk_idxs, lanes, clipped, host):
+        """Equalized frames (L, T, H, W) of the chunk's windows, row p
+        lane ``lanes[p]``; with metrics, the scores of the equalized
+        frames (against the equalized references on the rows whose lanes
+        have them, on the first shard's device) go into ``host``. Rows
+        past a lane's end stay zero (never recorded)."""
         processed = np.zeros_like(clipped)
-        for j, idxs in enumerate(chunk_idxs):
-            for r in range(len(idxs)):
-                processed[j, r] = histogram_equalization(clipped[j, r],
+        for p, j in enumerate(lanes):
+            for r in range(len(chunk_idxs[j])):
+                processed[p, r] = histogram_equalization(clipped[p, r],
                                                          hist_eq)
         if use:
-            refs = np.zeros((len(ref_lanes),) + clipped.shape[1:],
+            with_refs = [p for p, j in enumerate(lanes)
+                         if seqs[j].has_images]
+            refs = np.zeros((len(with_refs),) + clipped.shape[1:],
                             clipped.dtype)
-            for r_lane, j in enumerate(ref_lanes):
-                idxs = chunk_idxs[j]
-                if idxs:
-                    refs[r_lane, :len(idxs)] = equalized_refs(
-                        seqs[j], [metas_all[j][i] for i in idxs], hist_eq)
+            for r_row, p in enumerate(with_refs):
+                j = lanes[p]
+                if chunk_idxs[j]:
+                    refs[r_row, :len(chunk_idxs[j])] = equalized_refs(
+                        seqs[j], [metas_all[j][i] for i in chunk_idxs[j]],
+                        hist_eq)
             dev = first.upload({"i": processed, "r": refs})
             host.update({k: v.cpu().numpy() for k, v in score(
-                first, dev["i"], dev["r"], ref_lanes).items()})
+                first, dev["i"], dev["r"], with_refs).items()})
         return processed
 
     def drain(entry):
-        chunk_idxs, parts_host, events = entry
+        chunk_idxs, lanes, parts_host, events = entry
         host = {}
         with span(FETCH):
             fetched = from_host(parts_host, events)
-        # the parts' real lanes, in lane order, per output name; a metric
+        # the parts' real rows, in row order, per output name; a metric
         # that one part dropped at runtime is dropped from the whole chunk
         for (_, name), v in fetched.items():
             host.setdefault(name, []).append(v)
@@ -385,15 +438,15 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
         processed = None
         if clipped is not None:
             with span(SCORE):
-                processed = equalize_chunk(chunk_idxs, clipped, host)
+                processed = equalize_chunk(chunk_idxs, lanes, clipped, host)
         with span(RECORD):
-            for j, idxs in enumerate(chunk_idxs):
-                for r, i in enumerate(idxs):
+            for p, j in enumerate(lanes):
+                for r, i in enumerate(chunk_idxs[j]):
                     record_window(trackers[j], seqs[j], i, metas_all[j][i],
-                                  images[j, r] if images is not None
+                                  images[p, r] if images is not None
                                   else None,
-                                  {key: v[j, r] for key, v in host.items()},
-                                  processed[j, r] if processed is not None
+                                  {key: v[p, r] for key, v in host.items()},
+                                  processed[p, r] if processed is not None
                                   else None)
 
     max_chunks = max((-(-len(p) // chunk_t) for p in procs), default=0)

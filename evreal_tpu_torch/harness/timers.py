@@ -14,8 +14,8 @@ below): under an active ``torch.profiler`` session a span is a host event
 of that name in the same trace as the device's kernels; otherwise it is
 one shared no-op context. And they count, on
 the ``TimingLog`` (``counts``), the lane-windows a lockstep group runs
-against the real ones and the PNG writers' frames, bytes and thread
-seconds.
+against the real ones, the lanes it drops as they end, and the PNG
+writers' frames, bytes and thread seconds.
 """
 
 import contextlib
@@ -72,7 +72,9 @@ class TimingLog:
     the loop's work, updated on the loop's thread:
     ``lane_windows.real`` (windows evaluated) and
     ``lane_windows.computed`` (lanes run times the windows stepped, each
-    chunk; equal on the single-sequence path), ``png.frames``,
+    chunk: a group's running lanes, a mesh group's padded lanes; equal on
+    the single-sequence path), ``lockstep.narrowed`` (the lanes a group
+    dropped at chunk boundaries once their windows ran out), ``png.frames``,
     ``png.bytes`` and ``png.busy_s`` (the PNG writers' frames, encoded
     bytes and thread seconds, added when a sequence's writer is
     joined)."""
@@ -99,7 +101,9 @@ class TimingLog:
                           self.counts["lane_windows.computed"])
         if computed:
             lines.append(f"lockstep: {real} of {computed} lane-windows "
-                         f"real ({100.0 * real / computed:.1f}%)")
+                         f"real ({100.0 * real / computed:.1f}%), "
+                         f"{self.counts['lockstep.narrowed']} lanes "
+                         f"narrowed")
         frames, busy_s = self.counts["png.frames"], self.counts["png.busy_s"]
         if frames:
             lines.append(f"png writers: {frames} frames, "

@@ -411,6 +411,34 @@ def test_ragged_group_never_fetches_padding_lanes(inputs, three_dirs,
                                            "FireNet+").iterdir())
 
 
+@pytest.mark.parametrize("layout", ["mesh", "equal"])
+def test_padded_and_equal_groups_never_narrow(inputs, three_dirs, tmp_path,
+                                              monkeypatch, chunk_t, layout):
+    """A group over a mesh keeps its padded, dp-divisible lanes to the
+    end: 3 lanes of different lengths over dp = 2 compute 4 lanes times
+    the sum of the chunks' ``valid_t`` (the longest lane's windows), and
+    none is dropped; nor is any lane of a group of equal lengths."""
+    cfg = inputs["method_configs"]["FireNet+"]
+    mesh, dirs, n_pad = ((cpu_mesh(2), three_dirs, 4) if layout == "mesh"
+                         else (None, [three_dirs[1]] * 3, 3))
+    monkeypatch.setattr(tbatched, "_EVAL_MESH", mesh)
+    monkeypatch.chdir(tmp_path)
+    log = timers.TimingLog()
+    res = tbatched.eval_method_on_sequence_group(
+        "SYNS", EVAL_CONFIG, "FireNet+",
+        trunner.MethodBundle("FireNet+", cfg, "cpu"), cfg,
+        sequences(Sequence, dirs), ["mse"], log)
+    written = [len((seq_dir(tmp_path, i, "FireNet+") / "timestamps.txt")
+                   .read_text().splitlines()) for i in range(3)]
+    assert all(n > 0 for n, _ in res)
+    assert len(set(written)) == (3 if layout == "mesh" else 1)
+    ends = {(w - 1) // chunk_t for w in written}
+    assert len(ends) == (2 if layout == "mesh" else 1)
+    assert log.counts["lane_windows.real"] == sum(written)
+    assert log.counts["lane_windows.computed"] == n_pad * max(written)
+    assert log.counts["lockstep.narrowed"] == 0
+
+
 def test_bf16_sharded_group_within_bf16_bounds(inputs, tmp_path,
                                                monkeypatch, chunk_t):
     """A bf16 group on compact4 sharded over 2 entries against the same

@@ -6,8 +6,9 @@ one, once a call for the datasets and the bundle), nested only as
 ``evreal.png.wait`` in ``evreal.record``, all on the loop's thread;
 without a profiler ``span`` is one shared no-op and makes no profiler
 event; the lane-window counts match the windows written and
-the lanes times the busiest lane's windows, the PNG counts the files on
-disk; the single-sequence path counts every stepped window as real."""
+the running lanes' windows chunk by chunk (the group narrows as its
+lanes end), the PNG counts the files on disk; the single-sequence path
+counts every stepped window as real."""
 
 import json
 import os
@@ -38,7 +39,7 @@ torch.set_num_threads(1)
 
 CHUNK_T = 8
 METHOD = "FireNet+"
-# three lanes of unequal length: the shorter two idle in the last chunks
+# three lanes of unequal length: the shorter two drop out of the group
 DURATIONS = {"seq0": 1.7, "seq1": 0.9, "seq2": 1.25}
 
 
@@ -128,16 +129,34 @@ def test_span_off_the_profiler_is_the_shared_no_op(monkeypatch, name):
         pass
 
 
+def narrowed_counts(rows, chunk_t):
+    """(lane-windows computed, lanes narrowed) of a lockstep group whose
+    lanes run ``rows`` windows: chunk k runs the lanes with windows left
+    in it, each for the chunk's ``valid_t``; the lanes that end before
+    the group's last chunk are dropped."""
+    n_chunks = -(-max(rows) // chunk_t)
+    computed = 0
+    for k in range(n_chunks):
+        live = [r - k * chunk_t for r in rows if r > k * chunk_t]
+        computed += len(live) * min(chunk_t, max(live))
+    return computed, sum(1 for r in rows if -(-r // chunk_t) < n_chunks)
+
+
 def test_lane_windows_of_the_group(traced):
     """``real``: the windows written (one timestamp row each);
-    ``computed``: three lanes times the busiest lane's windows (the sum of
-    the chunks' ``valid_t``)."""
+    ``computed``: the sum over chunks of the running lanes times the
+    chunk's ``valid_t``; ``lockstep.narrowed``: the lanes that end before
+    the group's last chunk."""
     rows = {name: len((d / "timestamps.txt").read_text().splitlines())
             for name, d in lane_dirs(traced["root"]).items()}
     counts = traced["timings"].counts
     assert len(set(rows.values())) == len(DURATIONS)
+    computed, narrowed = narrowed_counts(list(rows.values()), CHUNK_T)
+    assert narrowed == len(rows) - 1
     assert counts["lane_windows.real"] == sum(rows.values())
-    assert counts["lane_windows.computed"] == len(rows) * max(rows.values())
+    assert counts["lane_windows.computed"] == computed
+    assert counts["lane_windows.computed"] < len(rows) * max(rows.values())
+    assert counts["lockstep.narrowed"] == narrowed
 
 
 @pytest.mark.parametrize("counter", ["png.frames", "png.bytes"])
@@ -153,7 +172,9 @@ def test_png_counts_match_the_disk(traced, counter):
 
 def test_summary_reports_the_counts(traced):
     lines = traced["timings"].summary()
-    assert any(line.startswith("lockstep: ") for line in lines), lines
+    assert any(line.startswith("lockstep: ")
+               and line.endswith(", 2 lanes narrowed") for line in lines), \
+        lines
     assert any(line.startswith("png writers: ") for line in lines), lines
 
 
