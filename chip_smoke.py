@@ -72,7 +72,10 @@ Phases, each printing one JSON line:
    against f32 within mean 0.02 / max 0.2, and, for the classes this slice
    added (FireNet_legacy, HyperE2VID, SPADE-E2VID, ET-Net), the card (TF32
    off) against the CPU path within 1e-4; steady ms/frame per method and
-   path; profile — one steady chunk each of ET-Net and HyperE2VID;
+   path; the attention wrapper's counts in each run (set to 0 before it):
+   ET-Net launches K3 for every call, 21 a window step, N x 8 x L x L
+   products each (L = 23 x 30 at 184 x 240), the other methods none;
+   profile — one steady chunk each of ET-Net and HyperE2VID;
 7. eval configs — with phase 6's E2VID and FireNet+ ``.pth`` files:
    ``-c color`` for E2VID on a synthetic 260 x 346 sequence (CED's
    sensor; 64 windows, one HIGHEST voxelizer launch per chunk of 16) and
@@ -252,7 +255,20 @@ Phases, each printing one JSON line:
    steady ms/frame, the whole wall of ``evaluate`` (``finalize``'s drain
    included), the host's core count, and the host's PNG frames/s on 256
    of the run's frames with 1, 2, 4, 8 and 16 writers and without one;
-16. the ``kernels`` line: per ported kernel its launches on its path (and
+16. attention — the fused float32 attention
+   (``evreal_tpu_torch/kernels/csrc/attention.cu``, K3): built, its
+   ``-Xptxas -v`` report; against ``attention_plain`` on the card (TF32
+   off) at L = 1, 47, 48 and 130, self- and cross-attention, flat and
+   sharp logits, at the rehearsal shape (10, 8, 48, 32) and at the main
+   path's (10, 8, 9638, 32) (every lane against the plain version one lane
+   at a time, since its (10, 8, L, L) scores do not fit): the max abs gap
+   of each, within 2e-5;
+   the main shape timed (25 CUDA-event timings, L2 flushed) beside its
+   bound, ``attention_plain`` at N = 1 and
+   ``scaled_dot_product_attention`` (``library_ms``: a yardstick only, the
+   port never calls it); ``python3 chip_smoke.py --attention`` runs this
+   phase alone;
+17. the ``kernels`` line: per ported kernel its launches on its path (and
    per method and path in the methods, eval-config, metrics, serve, train
    and mesh phases), error and times beside its bound, its serve shapes,
    its training launch, a mesh shard's launch and the sweep's chunk-0
@@ -1007,18 +1023,40 @@ def contained(out, label):
     check(not bad, f"{label}: evaluate contained {bad[:2]}")
 
 
-def run_evaluate(vc, method, dataset, switches, want, label, device):
+ATTENTION_CALLS_A_STEP = 21  # ET-Net: 3 scales x (3 + 2 x 2) attentions
+
+
+def attention_want(method, lanes, steps, hw, device="cuda"):
+    """The attention counts (calls, kernel launches, products N h Lq Lk)
+    of ``steps`` window steps of ``lanes`` lanes at ``hw``: ET-Net's 21
+    calls a step, each a K3 launch on the card, over its (lanes, 8, L, L)
+    products at L = (H/8) x (W/8) of the frame padded to a multiple of 8;
+    0 for the other methods."""
+    if method != "ET-Net":
+        return 0, 0, 0
+    calls = ATTENTION_CALLS_A_STEP * steps
+    tokens = -(-hw[0] // 8) * -(-hw[1] // 8)
+    return (calls, calls if device == "cuda" else 0,
+            calls * lanes * 8 * tokens * tokens)
+
+
+def run_evaluate(vc, method, dataset, switches, want, label, device,
+                 want_attention=(0, 0, 0)):
     """``evaluate`` of one method with its stdout captured; the launches
     of the voxelizer in this run (counts set to 0 just before) must be
-    ``want``. Returns (launches, steady ms per frame, wall s)."""
+    ``want``, and the attention counts (``TimingLog``'s, and the
+    wrapper's own, set to 0 just before) ``want_attention``. Returns
+    (launches, steady ms per frame, wall s, attention counts)."""
     import io
     from contextlib import redirect_stdout
 
     from evreal_tpu_torch.harness.runner import evaluate
-    from evreal_tpu_torch.harness.timers import TimingLog
+    from evreal_tpu_torch.harness.timers import ATTENTION_COUNTS, TimingLog
+    from evreal_tpu_torch.kernels import attention_cuda
 
     timings, buf = TimingLog(), io.StringIO()
     vc.reset_launches()
+    attention_cuda.reset_counts()
     t0 = time.perf_counter()
     with env(**switches), redirect_stdout(buf):
         evaluate([method], ["std"], [dataset], ["mse", "ssim"],
@@ -1028,7 +1066,13 @@ def run_evaluate(vc, method, dataset, switches, want, label, device):
     contained(buf.getvalue(), f"{method} {label}")
     check(launches == want, f"{method} {label}: voxelizer launches "
           f"{launches}, want {want} (one per chunk of {CHUNK_T} windows)")
-    return launches, timings.ms_per_frame(method), wall_s
+    counted = tuple(timings.counts[n] for n in ATTENTION_COUNTS)
+    check(counted == attention_cuda.counts() == tuple(want_attention),
+          f"{method} {label}: attention (calls, kernel calls, products) "
+          f"{counted} in the run's counts, {attention_cuda.counts()} in "
+          f"the wrapper's, want {tuple(want_attention)}")
+    attention = dict(zip(("calls", "kernel_calls", "products"), counted))
+    return launches, timings.ms_per_frame(method), wall_s, attention
 
 
 def phase_methods(torch, vc, vox, work, card, device="cuda"):
@@ -1097,12 +1141,15 @@ def phase_methods(torch, vc, vox, work, card, device="cuda"):
           "bit_equal_int64_plain": True, "at_launch": kernel_at_launch})
     results = {}
     for method in published_methods():
-        res = {"launches": {}, "ms_per_frame_steady": {}, "wall_s": {}}
+        res = {"launches": {}, "ms_per_frame_steady": {}, "wall_s": {},
+               "attention": {}}
         for label, ds, switches, prec in paths:
             want = {"highest": 0, "default": 0, prec: n_chunks}
+            lanes_run = 1 if ds == "MSYN" else MODEL_LANES
             (res["launches"][label], res["ms_per_frame_steady"][label],
-             res["wall_s"][label]) = run_evaluate(
-                vc, method, ds, switches, want, label, device)
+             res["wall_s"][label], res["attention"][label]) = run_evaluate(
+                vc, method, ds, switches, want, label, device,
+                attention_want(method, lanes_run, MODEL_WINDOWS, hw, device))
             for name in (["seq0"] if ds == "MSYN" else lanes):
                 check_tree(os.path.join("outputs", "std", ds, name, method),
                            MODEL_WINDOWS, hw, decode_frames=False,
@@ -1164,7 +1211,8 @@ def phase_methods(torch, vc, vox, work, card, device="cuda"):
               "kernel_at_launch": kernel_at_launch,
               "ms_per_frame_steady": {m: r["ms_per_frame_steady"]
                                       for m, r in results.items()},
-              "launches": {m: r["launches"] for m, r in results.items()}}
+              "launches": {m: r["launches"] for m, r in results.items()},
+              "attention": {m: r["attention"] for m, r in results.items()}}
     emit(result)
     return result
 
@@ -4011,6 +4059,76 @@ def read_bytes(path):
         return f.read()
 
 
+ATTENTION_MAIN = (10, 8, 9638, 32)   # BS-ERGB's 10 lanes, L = 79 x 122
+ATTENTION_REHEARSAL = (10, 8, 48, 32)  # the cell's 48 x 64 rehearsal
+ATTENTION_EDGES = ((1, 1), (47, 47), (48, 48), (130, 130), (130, 47),
+                   (1, 130))  # (Lq, Lk): below, at and across the tiles
+TOL_ATTENTION = 2e-5
+
+
+def attention_inputs(torch, n, h, lq, lk, dh, sharp=False, seed=0):
+    """q, k, v on the card: unit normal, so the logits are about unit
+    scale; ``sharp`` scales q 16-fold, so most rows put nearly all their
+    weight on one key."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((n, h, lq, dh), generator=gen, device="cuda")
+    k = torch.randn((n, h, lk, dh), generator=gen, device="cuda")
+    v = torch.randn((n, h, lk, dh), generator=gen, device="cuda")
+    return (q * 16 if sharp else q), k, v
+
+
+def phase_attention(torch, card):
+    """K3 against its plain version and timed (module docstring, 16)."""
+    from evreal_tpu_torch.kernels import attention_cuda as ac
+
+    info = ac.build()
+    emit({"phase": "attention_build", "seconds": info["seconds"],
+          "cached": info["cached"], "ptxas": info["log"].splitlines()})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ac.reset_counts()
+    gaps = {}
+    for lq, lk in ATTENTION_EDGES:
+        for sharp in (False, True):
+            q, k, v = attention_inputs(torch, 2, 8, lq, lk, 32, sharp)
+            got = ac.attention(q, k, v)
+            gaps[f"{lq}x{lk}{'_sharp' if sharp else ''}"] = float(
+                (got - ac.attention_plain(q, k, v)).abs().max())
+    n, h, length, dh = ATTENTION_REHEARSAL
+    q, k, v = attention_inputs(torch, n, h, length, length, dh)
+    gaps["rehearsal"] = float((ac.attention(q, k, v)
+                               - ac.attention_plain(q, k, v)).abs().max())
+    n, h, length, dh = ATTENTION_MAIN
+    q, k, v = attention_inputs(torch, n, h, length, length, dh)
+    out = ac.attention(q, k, v)
+    gaps["main"] = max(float((out[j:j + 1] - ac.attention_plain(
+        q[j:j + 1], k[j:j + 1], v[j:j + 1])).abs().max()) for j in range(n))
+    torch.cuda.synchronize()
+    launches = ac.launches
+    check(launches == len(ATTENTION_EDGES) * 2 + 2,
+          f"attention: {launches} launches")
+    for name, gap in gaps.items():
+        check(gap <= TOL_ATTENTION, f"attention {name}: max abs gap {gap}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    ms = time_ms(torch, lambda: ac.attention(q, k, v), flush)
+    plain_ms = time_ms(torch, lambda: ac.attention_plain(
+        q[:1], k[:1], v[:1]), flush)
+    library_ms = time_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v), flush)
+    flops = 4 * n * h * length * length * dh
+    moved = 4 * 4 * n * h * length * dh
+    t_ops, t_bytes = flops / F32_OPS_PER_S, moved / HBM_BYTES_PER_S
+    res = {"phase": "attention", "shape": list(ATTENTION_MAIN),
+           "max_abs_gap": gaps, "launches": launches, "ms": ms,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "roofline_pct": 100.0 * max(t_ops, t_bytes) * 1e3 / ms,
+           "tflops": flops / ms / 1e9, "plain_ms_n1": plain_ms,
+           "library_ms": library_ms, "card": card}
+    emit(res)
+    return res
+
+
 def phase_writer(torch, vc, work, card, device="cuda"):
     """Frames written by one background thread per sequence on the three
     eval paths, images on and off: every PNG present and decodable, the
@@ -4152,6 +4270,12 @@ def main():
     if sys.argv[1:] == ["--serve-voxelizer-times"]:  # phase 9's timings
         emit(time_serve_voxelizer(torch, vc, vox))
         return
+    if sys.argv[1:] == ["--attention"]:  # phase 16 alone
+        phase_attention(torch, subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+        return
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4204,6 +4328,7 @@ def main():
             phase_writer(torch, vc, work, smi)
         finally:
             os.chdir(cwd)
+    attn = phase_attention(torch, smi)
     by_method = methods["launches"]
     at_launch = methods["kernel_at_launch"]
     color = configs["color"]
@@ -4391,6 +4516,18 @@ def main():
          "serve_shapes": serve_shapes("default", "tiled"),
          "mesh_shard_launch": mesh_launch("default"),
          "sweep_launches": sweep_launches("default"),
+         "card": smi},
+        {"name": "attention", "route": "cuda",
+         "source": "evreal_tpu_torch/kernels/csrc/attention.cu",
+         "replaces": None, "precision": "float32",
+         "launches_by_method": {m: {p: a["kernel_calls"]
+                                    for p, a in v.items()}
+                                for m, v in methods["attention"].items()
+                                if any(a["calls"] for a in v.values())},
+         "phase_launches": attn["launches"],
+         **{k: attn[k] for k in ("shape", "max_abs_gap", "ms",
+                                 "bound_ms", "bound_by", "roofline_pct",
+                                 "plain_ms_n1", "library_ms")},
          "card": smi}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -63,6 +63,7 @@ from evreal_tpu_torch.harness.runner import (
     MetricContainment,
     abandon_on_error,
     check_resume,
+    count_attention,
     equalized_refs,
     event_dtypes,
     finish_tracker,
@@ -365,7 +366,7 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
                                  out_zeroed=zeroed)
         with span(UPLOAD):
             parts_bufs = upload_parts(runner, bufs)
-        with span(STEP):
+        with span(STEP), count_attention(timings):
             clipped_parts = run_parts(runner, states, parts_bufs, valid_t)
         del parts_bufs  # back to the allocator before the scoring's buffers
         real_windows = sum(len(idxs) for idxs in chunk_idxs)

@@ -93,6 +93,7 @@ from evreal_tpu_torch.harness.tables import (
     print_scores,
 )
 from evreal_tpu_torch.harness.timers import (
+    ATTENTION_COUNTS,
     BUNDLE,
     FETCH,
     OPEN,
@@ -108,6 +109,7 @@ from evreal_tpu_torch.harness.timers import (
     span,
 )
 from evreal_tpu_torch.harness.video import require_ffmpeg
+from evreal_tpu_torch.kernels.attention_cuda import counts as attention_counts
 from evreal_tpu_torch.metrics import registry
 from evreal_tpu_torch.metrics.tracker import (
     EvalMetricsTracker,
@@ -670,6 +672,19 @@ def finish_tracker(tracker, eval_config, dropped, timings=None):
                 tracker.create_processed_video()
 
 
+@contextlib.contextmanager
+def count_attention(timings):
+    """Add to ``timings`` the attention wrapper's counts
+    (``kernels/attention_cuda.py:counts()``) made inside the ``with``
+    block, a chunk's step: every call, those that launched the fused
+    kernel, and the products N * heads * Lq * Lk."""
+    before = attention_counts()
+    yield
+    for name, now, then in zip(ATTENTION_COUNTS, attention_counts(),
+                               before):
+        timings.count(name, now - then)
+
+
 def event_dtypes(seqs):
     """Event-buffer dtypes of the active wire (``EVREAL_WIRE``) for
     sequences of one resolution: integer coordinates only when every
@@ -820,7 +835,7 @@ def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
             bufs["count"][valid_t:] = 0  # ragged last chunk: empty windows
         with span(UPLOAD):
             dev_bufs = runner.upload(bufs)
-        with span(STEP):
+        with span(STEP), count_attention(timings):
             state, _, clipped = runner.run(state, dev_bufs, valid_t)
         del dev_bufs  # back to the allocator before the scoring's buffers
         # one lane: every window stepped is a real one

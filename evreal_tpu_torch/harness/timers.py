@@ -9,22 +9,22 @@ steady-state ms per frame of the slowest card. Samples go to the
 ``TimingLog`` the caller passes; ``summary()`` is frame-count weighted
 across sequences.
 
-The eval loops also mark their stages with ``span(name)`` (the ``SPANS``
-below): under an active ``torch.profiler`` session a span is a host event
-of that name in the same trace as the device's kernels; otherwise it is
-one shared no-op context. And they count, on
-the ``TimingLog`` (``counts``), the lane-windows a lockstep group runs
-against the real ones, the lanes it drops as they end, and the PNG
-writers' frames, bytes and thread seconds.
+The eval loops also mark their stages with ``span(name)``
+(``utils/spans.py``; the ``SPANS`` below): under an active
+``torch.profiler`` session a span is a host event of that name in the
+same trace as the device's kernels; otherwise it is one shared no-op
+context. And they count, on the ``TimingLog`` (``counts``), the
+lane-windows a lockstep group runs against the real ones, the lanes it
+drops as they end, the PNG writers' frames, bytes and thread seconds, and
+the attention calls of each chunk's model steps.
 """
 
-import contextlib
 import time
 from collections import Counter, defaultdict
 
 import torch
-from torch._C._autograd import _profiler_enabled
-from torch._C._profiler import _RecordFunctionFast
+
+from evreal_tpu_torch.utils.spans import span  # noqa: F401 (the loops')
 
 # the spans of the eval loop (``harness/runner.py``, ``harness/batched.py``)
 OPEN = "evreal.open"            # an eval config's datasets opened
@@ -40,25 +40,10 @@ PNG_WAIT = "evreal.png.wait"    # a frame queued to its writer (in RECORD)
 PNG_DRAIN = "evreal.png.drain"  # a sequence's writer joined, files closed
 SPANS = (OPEN, BUNDLE, SETUP, PACK, UPLOAD, STEP, SCORE, FETCH, RECORD,
          PNG_WAIT, PNG_DRAIN)
-
-_OFF = contextlib.nullcontext()
-
-
-def span(name):
-    """A profiler event ``name`` over the ``with`` block when a
-    ``torch.profiler`` session is active on this thread, else one shared
-    no-op context (no allocation; the check costs a fraction of a
-    microsecond).
-
-    The event is ``_RecordFunctionFast``'s (the one torch's compiled code
-    emits; a ``cpu_op`` in the Chrome trace), not ``record_function``'s:
-    that dispatches a torch op on entry and exit, which releases the
-    interpreter lock, and each time the loop must win it back from the
-    PNG writer threads (on an H100 machine's host, 147 us a span beside
-    one busy thread, against 3 us for this one)."""
-    if _profiler_enabled():
-        return _RecordFunctionFast(name)
-    return _OFF
+# the attention wrapper's counts (``kernels/attention_cuda.py:counts``),
+# added a chunk at a time (``harness/runner.py:count_attention``)
+ATTENTION_COUNTS = ("attention.calls", "attention.kernel_calls",
+                    "attention.products")
 
 
 def fence(device):
@@ -77,7 +62,10 @@ class TimingLog:
     dropped at chunk boundaries once their windows ran out), ``png.frames``,
     ``png.bytes`` and ``png.busy_s`` (the PNG writers' frames, encoded
     bytes and thread seconds, added when a sequence's writer is
-    joined)."""
+    joined), and the ``ATTENTION_COUNTS``: ``attention.calls``,
+    ``attention.kernel_calls`` (those that launched the fused kernel) and
+    ``attention.products`` (the sum of N * heads * Lq * Lk), added a chunk
+    at a time."""
 
     def __init__(self):
         self.samples = defaultdict(list)
@@ -110,6 +98,11 @@ class TimingLog:
                          f"{self.counts['png.bytes']} bytes, {busy_s:.3f} "
                          f"thread s ({1000.0 * busy_s / frames:.2f} "
                          f"ms/frame)")
+        calls, fused, products = (self.counts[n] for n in ATTENTION_COUNTS)
+        if calls:
+            lines.append(f"attention: {calls} calls, {fused} fused "
+                         f"({100.0 * fused / calls:.1f}%), {products} "
+                         f"products")
         return lines
 
 

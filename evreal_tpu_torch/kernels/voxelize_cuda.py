@@ -25,18 +25,14 @@ the same function is ``evreal_tpu_torch.ops.voxelize.voxelize_windows_plain``
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from evreal_tpu_torch.kernels import nvcc
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCE = _CSRC / "voxelize.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "evreal_tpu_torch"
 # --fmad=false: no FMA contraction, so the f32 chain rounds like the
 # reference's separate operations; no --use_fast_math (IEEE division,
 # denormals kept); -Xptxas -v reports registers and spills
@@ -76,45 +72,15 @@ _scratch = {}  # (device index, stream) -> the direct path's int64 cells
 _lib = None
 
 
-def _nvcc():
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    cand = [shutil.which("nvcc")]
-    if CUDA_HOME:
-        cand.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
-    for path in cand:
-        if path and os.path.exists(path):
-            return path
-    raise RuntimeError("nvcc not found (PATH, CUDA_HOME): the CUDA "
-                       "voxelizer cannot be built")
-
-
 def library_path():
-    digest = hashlib.sha256(_SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"libevreal_voxelize-{digest[:16]}.so"
+    return nvcc.library_path(_SOURCE, NVCC_FLAGS, "libevreal_voxelize")
 
 
 def build():
-    """Compile the library unless this source's build exists. Returns
-    ``{"path", "seconds", "log", "cached"}``; ``log`` holds nvcc's
-    ``-Xptxas -v`` report (registers, spills) of a fresh build. Raises
-    when the build fails."""
-    path = library_path()
-    if path.exists():
-        return {"path": str(path), "seconds": 0.0, "log": "", "cached": True}
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return {"path": str(path), "seconds": seconds,
-            "log": proc.stdout + proc.stderr, "cached": False}
+    """Compile the library unless this source's build exists
+    (``kernels/nvcc.py:build``: ``{"path", "seconds", "log", "cached"}``).
+    Raises when the build fails."""
+    return nvcc.build(_SOURCE, NVCC_FLAGS, "libevreal_voxelize")
 
 
 def _load():

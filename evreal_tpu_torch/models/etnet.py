@@ -26,9 +26,16 @@ from evreal_tpu_torch.nn.attention import (
 )
 from evreal_tpu_torch.nn.cells import RecurrentConvLayer, conv_lstm_zero_state
 from evreal_tpu_torch.nn.layers import ConvLayer, UpsampleConvLayer
+from evreal_tpu_torch.utils.spans import span
 
 CHANNELS = (64, 128, 256)
 D_MODEL, NUM_HEADS = 256, 8
+# the spans of a step, each once a window step (inside the eval loop's
+# ``evreal.step``)
+ENCODE = "evreal.etnet.encode"            # head and ConvLSTM stages
+TRANSFORMER = "evreal.etnet.transformer"  # tokens and the 6 streams
+DECODE = "evreal.etnet.decode"            # upsample decoders, pred
+SPANS = (ENCODE, TRANSFORMER, DECODE)
 
 
 class EITR(nn.Module):
@@ -108,26 +115,30 @@ class EITR(nn.Module):
 
     def decode_batched(self, feats):
         """The state-free suffix on any leading batch: tokens, the 6
-        transformer streams, the upsample decoders, pred."""
+        transformer streams (``TRANSFORMER``), the upsample decoders and
+        pred (``DECODE``)."""
         head, b0, b1, b2 = feats
         n, _, h8, w8 = b2.shape
-        pos = self.pos_table(h8 * w8, b2)
+        with span(TRANSFORMER):
+            pos = self.pos_table(h8 * w8, b2)
 
-        def tokens(x):
-            return x.flatten(2).transpose(1, 2)  # (N, L, d), row-major L
+            def tokens(x):
+                return x.flatten(2).transpose(1, 2)  # (N, L, d), row-major L
 
-        hs0 = self.trans_encoder0(tokens(b2), pos)
-        hs1 = self.trans_encoder1(tokens(self.split1(b1)), pos)
-        hs2 = self.trans_encoder2(tokens(self.split2(b0)), pos)
-        hc0 = self.trans_decoder0(hs0, hs0)
-        hc1 = self.trans_decoder1(hs1, hs0)
-        hc2 = self.trans_decoder2(hs2, hs1)
-        hs = (hs0 + hs1 + hs2 + hc0 + hc1 + hc2) / 6
-        x = hs.transpose(1, 2).reshape(n, D_MODEL, h8, w8)
-        for layer, skip in zip(self.UpsampleConv, (b2, b1, b0)):
-            x = layer(x + skip)
-        return {"image": torch.sigmoid(self.pred(x + head))}
+            hs0 = self.trans_encoder0(tokens(b2), pos)
+            hs1 = self.trans_encoder1(tokens(self.split1(b1)), pos)
+            hs2 = self.trans_encoder2(tokens(self.split2(b0)), pos)
+            hc0 = self.trans_decoder0(hs0, hs0)
+            hc1 = self.trans_decoder1(hs1, hs0)
+            hc2 = self.trans_decoder2(hs2, hs1)
+            hs = (hs0 + hs1 + hs2 + hc0 + hc1 + hc2) / 6
+            x = hs.transpose(1, 2).reshape(n, D_MODEL, h8, w8)
+        with span(DECODE):
+            for layer, skip in zip(self.UpsampleConv, (b2, b1, b0)):
+                x = layer(x + skip)
+            return {"image": torch.sigmoid(self.pred(x + head))}
 
     def forward(self, voxel, state):
-        feats, new_states = self.encode_recurrent(voxel, state)
+        with span(ENCODE):
+            feats, new_states = self.encode_recurrent(voxel, state)
         return self.decode_batched(feats), new_states

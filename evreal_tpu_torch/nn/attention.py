@@ -5,17 +5,20 @@ variant of transformer.py, which no reference entry point reaches).
 
 Parameters are named like torch's ``nn.MultiheadAttention``
 (``in_proj_weight``, ``in_proj_bias``, ``out_proj``), so reference
-checkpoints load directly; the products are written out (matmul, softmax)
-rather than taken from its fused fast path or from
-``scaled_dot_product_attention``, so the f32 parity mode (TF32 off)
-governs every one. Layout is batch-first (N, L, E); eval mode, no dropout.
+checkpoints load directly. The projections are ``linear`` calls, which the
+f32 parity mode (TF32 off) governs; the attention products go through
+``kernels/attention_cuda.py:attention``: on the card the fused kernel, in
+float32 whatever the stream's dtype (no (N, h, L, L) tensor in device
+memory, every product an f32 FMA); on the CPU the written-out matmul and
+softmax, in the stream's dtype. Layout is batch-first (N, L, E); eval
+mode, no dropout.
 """
-
-import math
 
 import numpy as np
 import torch
 from torch import nn
+
+from evreal_tpu_torch.kernels.attention_cuda import attention, takes_kernel
 
 
 class MultiheadAttention(nn.Module):
@@ -58,12 +61,14 @@ class MultiheadAttention(nn.Module):
             (q,) = self._project(q_in, 0, e)
             (k,) = self._project(k_in, e, 2 * e)
             (v,) = self._project(v_in, 2 * e, 3 * e)
-        n, lq, h, d = q.shape
+        n, lq, _, _ = q.shape
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (N, h, L, d)
-        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
-        attn = torch.softmax(logits, dim=-1)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(n, lq, e)
-        return self.out_proj(out)
+        if takes_kernel(q):
+            # the kernel takes contiguous f32: a bf16 stream's products run
+            # in f32 and round back to bf16
+            q, k, v = (t.float().contiguous() for t in (q, k, v))
+        out = attention(q, k, v).to(q_in.dtype)
+        return self.out_proj(out.transpose(1, 2).reshape(n, lq, e))
 
 
 class _FeedForward(nn.Module):

@@ -18,7 +18,6 @@ import torch
 
 from evreal_tpu_torch.data import Sequence
 from evreal_tpu_torch.harness import runner as trunner
-from evreal_tpu_torch.harness import timers
 from evreal_tpu_torch.harness.timers import (
     BUNDLE,
     FETCH,
@@ -32,6 +31,8 @@ from evreal_tpu_torch.harness.timers import (
     TimingLog,
     span,
 )
+
+from evreal_tpu_torch.utils import spans
 
 from .test_torch_eval import make_sequence, write_inputs
 
@@ -121,7 +122,7 @@ def refuse(*_):
 
 @pytest.mark.parametrize("name", SPANS)
 def test_span_off_the_profiler_is_the_shared_no_op(monkeypatch, name):
-    monkeypatch.setattr(timers, "_RecordFunctionFast", refuse)
+    monkeypatch.setattr(spans, "_RecordFunctionFast", refuse)
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     got = span(name)
     assert got is span(SPANS[0])
@@ -183,7 +184,7 @@ def test_single_path_counts_every_window_real(traced, tmp_path,
     """One sequence through ``eval_method_on_sequence``, no profiler (a
     profiler event would raise): real equals computed equals the windows
     written."""
-    monkeypatch.setattr(timers, "_RecordFunctionFast", refuse)
+    monkeypatch.setattr(spans, "_RecordFunctionFast", refuse)
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     monkeypatch.setattr(trunner, "DEFAULT_CHUNK_T", CHUNK_T)
     monkeypatch.chdir(traced["root"])
