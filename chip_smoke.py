@@ -257,17 +257,20 @@ Phases, each printing one JSON line:
    of the run's frames with 1, 2, 4, 8 and 16 writers and without one;
 16. attention — the fused float32 attention
    (``evreal_tpu_torch/kernels/csrc/attention.cu``, K3): built, its
-   ``-Xptxas -v`` report; against ``attention_plain`` on the card (TF32
-   off) at L = 1, 47, 48 and 130, self- and cross-attention, flat and
-   sharp logits, at the rehearsal shape (10, 8, 48, 32) and at the main
-   path's (10, 8, 9638, 32) (every lane against the plain version one lane
-   at a time, since its (10, 8, L, L) scores do not fit): the max abs gap
-   of each, within 2e-5;
-   the main shape timed (25 CUDA-event timings, L2 flushed) beside its
-   bound, ``attention_plain`` at N = 1 and
-   ``scaled_dot_product_attention`` (``library_ms``: a yardstick only, the
-   port never calls it); ``python3 chip_smoke.py --attention`` runs this
-   phase alone;
+   ``-Xptxas -v`` report (and per kernel its registers, spills and static
+   shared memory; none may spill); against
+   ``attention_plain`` on the card (TF32 off) at L = 1, 47, 48 and 130,
+   below, at and past the 64-key tile, the two-stage ring and the 64-row
+   block (63, 64, 65, 129, 33 x 193, 200 x 65), self- and
+   cross-attention, flat and sharp logits, at the rehearsal shape (10, 8,
+   48, 32) and at the main path's (10, 8, 9638, 32) (every lane against
+   the plain version one lane at a time, since its (10, 8, L, L) scores do
+   not fit): the max abs gap of each, within 2e-5; the main shape and
+   ET-Net's 180 x 240 shape (4, 8, 690, 32) timed (25 CUDA-event timings,
+   L2 flushed) beside their bounds and the blocks of 64 rows each took,
+   ``attention_plain`` at N = 1 and ``scaled_dot_product_attention``
+   (``library_ms``: a yardstick only, the port never calls it);
+   ``python3 chip_smoke.py --attention`` runs this phase alone;
 17. the ``kernels`` line: per ported kernel its launches on its path (and
    per method and path in the methods, eval-config, metrics, serve, train
    and mesh phases), error and times beside its bound, its serve shapes,
@@ -4060,9 +4063,13 @@ def read_bytes(path):
 
 
 ATTENTION_MAIN = (10, 8, 9638, 32)   # BS-ERGB's 10 lanes, L = 79 x 122
+ATTENTION_SMALL = (4, 8, 690, 32)    # 4 lanes at 180 x 240, L = 23 x 30
 ATTENTION_REHEARSAL = (10, 8, 48, 32)  # the cell's 48 x 64 rehearsal
+# (Lq, Lk): below, at and across the 64-key tile, past the two-stage ring
+# (3 and 4 tiles) and the 64-row block
 ATTENTION_EDGES = ((1, 1), (47, 47), (48, 48), (130, 130), (130, 47),
-                   (1, 130))  # (Lq, Lk): below, at and across the tiles
+                   (1, 130), (63, 63), (64, 64), (65, 65), (129, 129),
+                   (33, 193), (200, 65))
 TOL_ATTENTION = 2e-5
 
 
@@ -4080,10 +4087,17 @@ def attention_inputs(torch, n, h, lq, lk, dh, sharp=False, seed=0):
 def phase_attention(torch, card):
     """K3 against its plain version and timed (module docstring, 16)."""
     from evreal_tpu_torch.kernels import attention_cuda as ac
+    from evreal_tpu_torch.kernels import nvcc
 
     info = ac.build()
+    usage = nvcc.ptxas_usage(info["log"])
     emit({"phase": "attention_build", "seconds": info["seconds"],
-          "cached": info["cached"], "ptxas": info["log"].splitlines()})
+          "cached": info["cached"], "ptxas": info["log"].splitlines(),
+          "kernels": usage})
+    if not info["cached"]:
+        for name, use in usage.items():
+            check(use["spill_stores"] == use["spill_loads"] == 0,
+                  f"attention: {name} spills ({use})")
     torch.backends.cuda.matmul.allow_tf32 = False
     ac.reset_counts()
     gaps = {}
@@ -4115,18 +4129,34 @@ def phase_attention(torch, card):
     library_ms = time_ms(
         torch, lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v), flush)
+    sn, sh, slen, sdh = ATTENTION_SMALL
+    qs, ks, vs = attention_inputs(torch, sn, sh, slen, slen, sdh)
+    small_ms = time_ms(torch, lambda: ac.attention(qs, ks, vs), flush)
+    res = {"phase": "attention", "shape": list(ATTENTION_MAIN),
+           "max_abs_gap": gaps, "launches": launches, "ms": ms,
+           **attention_bound(ATTENTION_MAIN, ms, ac.BLOCK_ROWS),
+           "plain_ms_n1": plain_ms, "library_ms": library_ms,
+           "small": {"shape": list(ATTENTION_SMALL), "ms": small_ms,
+                     **attention_bound(ATTENTION_SMALL, small_ms,
+                                       ac.BLOCK_ROWS)},
+           "card": card}
+    emit(res)
+    return res
+
+
+def attention_bound(shape, ms, block_rows):
+    """K3 at ``shape`` (N, h, L, dh) in ``ms``: its bound (the larger of
+    the FP32 operations and the bytes in and out), the share of it, the
+    TFLOP/s, and the blocks of ``block_rows`` rows the launch made."""
+    n, h, length, dh = shape
     flops = 4 * n * h * length * length * dh
     moved = 4 * 4 * n * h * length * dh
     t_ops, t_bytes = flops / F32_OPS_PER_S, moved / HBM_BYTES_PER_S
-    res = {"phase": "attention", "shape": list(ATTENTION_MAIN),
-           "max_abs_gap": gaps, "launches": launches, "ms": ms,
-           "bound_ms": max(t_ops, t_bytes) * 1e3,
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "roofline_pct": 100.0 * max(t_ops, t_bytes) * 1e3 / ms,
-           "tflops": flops / ms / 1e9, "plain_ms_n1": plain_ms,
-           "library_ms": library_ms, "card": card}
-    emit(res)
-    return res
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "roofline_pct": 100.0 * max(t_ops, t_bytes) * 1e3 / ms,
+            "tflops": flops / ms / 1e9, "block_rows": block_rows,
+            "blocks": n * h * -(-length // block_rows)}
 
 
 def phase_writer(torch, vc, work, card, device="cuda"):
@@ -4527,7 +4557,8 @@ def main():
          "phase_launches": attn["launches"],
          **{k: attn[k] for k in ("shape", "max_abs_gap", "ms",
                                  "bound_ms", "bound_by", "roofline_pct",
-                                 "plain_ms_n1", "library_ms")},
+                                 "block_rows", "plain_ms_n1", "library_ms",
+                                 "small")},
          "card": smi}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -14,12 +14,14 @@ which the CPU tests hold the kernel's arithmetic to and which
 The library is built with ``nvcc`` (``kernels/nvcc.py``) at first use,
 keyed by a hash of the source and the flags, and loaded with ``ctypes``
 (``PyDLL``: a call holds the GIL). Nothing is built or loaded when this
-module is imported.
+module is imported. A call on the card launches two kernels (k transposed
+into a scratch buffer that ``attention`` allocates, then the attention).
 
 Counts (plain integers, added by ``attention`` only): ``calls`` (every
-call, CPU or CUDA), ``launches`` (kernel launches) and ``products`` (the
-sum of N * h * Lq * Lk over the calls); ``counts()`` returns them, and the
-eval loops add them to their ``TimingLog`` a chunk at a time.
+call, CPU or CUDA), ``launches`` (calls that launched the kernels) and
+``products`` (the sum of N * h * Lq * Lk over the calls); ``counts()``
+returns them, and the eval loops add them to their ``TimingLog`` a chunk
+at a time.
 """
 
 import ctypes
@@ -38,6 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HEAD_DIM = 32     # the kernel's dh (csrc/attention.cu:kDh)
 MAX_BH = 65535    # N * h: the grid's y limit
+BLOCK_ROWS = 64   # query rows a block (csrc/attention.cu:kBlockQ)
+KEY_TILE = 64     # keys a tile; the scratch pads Lk to it (kBlockK)
 
 # the device type the kernel takes (the CPU tests set "cpu" to reach the
 # launch path)
@@ -59,7 +63,7 @@ def _load():
     if _lib is None:
         lib = ctypes.PyDLL(build()["path"])
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.evreal_attention.argtypes = ([ptr] * 4 + [i32] * 4
+        lib.evreal_attention.argtypes = ([ptr] * 5 + [i32] * 4
                                          + [ctypes.c_float, i32, ptr])
         lib.evreal_attention.restype = i32
         lib.evreal_attention_error_string.argtypes = [i32]
@@ -150,11 +154,14 @@ def attention(q, k, v):
     if not on_card:
         return attention_plain(q, k, v)
     lib = _lib or _load()
+    lk = k.shape[2]
     out = torch.empty_like(q)
+    kt = torch.empty((n * h, dh, -(-lk // KEY_TILE) * KEY_TILE),
+                     dtype=torch.float32, device=q.device)
     index = q.device.index or 0
     err = lib.evreal_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n * h, lq,
-        k.shape[2], dh, 1.0 / math.sqrt(dh), index,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        kt.data_ptr(), n * h, lq, lk, dh, 1.0 / math.sqrt(dh), index,
         torch._C._cuda_getCurrentRawStream(index))
     if err:
         msg = (lib.evreal_attention_error_string(err).decode() if err > 0

@@ -7,6 +7,7 @@ kernel module is imported."""
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -55,3 +56,52 @@ def build(source, flags, stem):
     os.replace(tmp, path)
     return {"path": str(path), "seconds": seconds,
             "log": proc.stdout + proc.stderr, "cached": False}
+
+
+def _kernel_name(mangled):
+    """The ``..._kernel`` identifier inside an Itanium-mangled name (its
+    length prefix read back; the prefix may follow other digits, as after
+    an anonymous namespace's hash), else the name as it is."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(len(m.group())):
+            part = mangled[m.end():m.end() + int(m.group()[i:])]
+            if part.endswith("kernel") and part.isidentifier():
+                return part
+    return mangled
+
+
+def ptxas_usage(log):
+    """Per kernel of nvcc's ``-Xptxas -v`` report in ``log``: {name:
+    {"registers", "spill_stores", "spill_loads", "stack_bytes",
+    "smem_bytes"}}, smem_bytes being the static shared memory (dynamic
+    shared memory is not in the report). Names are the kernels' own
+    identifiers; a kernel's template instances share one entry, holding
+    the most any of them uses."""
+    out, name = {}, None
+
+    def worst(**use):
+        for key, value in use.items():
+            out[name][key] = max(out[name][key], value)
+
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([^' ]+)'?", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            out.setdefault(name, {"registers": 0, "spill_stores": 0,
+                                  "spill_loads": 0, "stack_bytes": 0,
+                                  "smem_bytes": 0})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            worst(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                  spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            worst(registers=int(m.group(1)),
+                  smem_bytes=int(sm.group(1)) if sm else 0)
+    return out

@@ -1,14 +1,17 @@
 """The fused attention's wrapper (``evreal_tpu_torch/kernels/
 attention_cuda.py``) on the CPU: ``attention_plain`` against softmax
-attention in float64 at L = 1, 47, 48 and 130, self- and cross-attention,
-flat and sharp logits; the kernel's online softmax (``csrc/
-attention.cu``: tiles of 64 keys zero-filled at the ragged end, 16 keys a
-register tile, the running max, sum and output rescaled) emulated in
-float32 against the same; a CPU call on views of any float dtype; the
-checks that raise on a dtype, shape, stride or head width the kernel does
-not take; and the launch path, reached with the device check pointed at
-the CPU: a failed launch raises, never falls back, and a launch is
-counted."""
+attention in float64 at L = 1, 47, 48 and 130, at lengths below, at and
+past the kernel's 64-key tile, its two-stage ring and its 64-row block,
+self- and cross-attention, flat and sharp logits; the kernel's online
+softmax (``csrc/attention.cu``: tiles of 64 keys, the ragged end masked,
+scores in log2 units as fmaf(s, c, -ref), the reference raised only when
+a tile's max tops it by more than 8, for all 32 rows of a warp at once,
+sums and outputs rescaled then) emulated in float32 against the same,
+with logits far below zero too; a CPU call on views of any float dtype;
+the checks that raise on a dtype, shape, stride or head width the kernel
+does not take; and the launch path, reached with the device check pointed
+at the CPU: a failed launch raises, never falls back, and a launch is
+counted with its shape and its scratch buffer."""
 
 import math
 
@@ -20,8 +23,17 @@ from evreal_tpu_torch.kernels import attention_cuda as ac
 
 torch.set_num_threads(1)
 
-TOL = 1e-5  # float32 against float64 over <= 130 keys of unit-scale values
+TOL = 1e-5  # float32 against float64 over <= 200 keys of unit-scale values
 LENGTHS = [(1, 1), (47, 47), (48, 48), (130, 130), (47, 130), (130, 1)]
+# (Lq, Lk) below, at and past the 64-key tile (63, 64, 65), past the
+# two-stage ring (129, 193: three and four tiles), past the 64-row block
+# and the 32-row warp (33, 65, 129, 200)
+TILE_EDGES = [(63, 63), (64, 64), (65, 65), (129, 129), (33, 193),
+              (200, 65)]
+TILE = 64          # keys a tile (csrc/attention.cu:kBlockK)
+WARP_ROWS = 32     # rows whose reference rises together (a warp)
+SLACK = 8.0        # csrc/attention.cu:kSlack
+LOG2E = 1.4426950408889634
 
 
 def inputs(lq, lk, sharp, n=2, h=8, dh=32, seed=0):
@@ -44,32 +56,42 @@ def attention_f64(q, k, v):
     return torch.softmax(logits, -1) @ v
 
 
-def online_softmax(q, k, v, tile=64, sub=16):
-    """The kernel's arithmetic in float32, a key tile at a time: keys past
-    Lk zero-filled and given p = 0, the max of the raw scores, ``alpha =
-    exp((m_old - m_new) * scale)``, ``p = exp((s - m_new) * scale)``."""
-    lk, dh = k.shape[-2], q.shape[-1]
-    scale = torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32)
-    pad = -lk % tile
+def fma32(a, b, c):
+    """fmaf elementwise: a * b + c rounded once to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def online_softmax(q, k, v):
+    """The kernel's arithmetic in float32, a 64-key tile at a time: the
+    raw scores (keys past Lk at -inf), a row's reference ``ref`` (-inf at
+    first) raised to its running max times c = scale * log2(e) only when
+    the tile's max tops it by more than ``SLACK``, and then for every row
+    of its 32-row warp, the sum and output rescaled by ``exp2(ref_old -
+    ref_new)``; ``p = exp2(fmaf(s, c, -ref))``."""
+    lq, lk, dh = q.shape[-2], k.shape[-2], q.shape[-1]
+    c = (torch.tensor(1.0 / math.sqrt(dh), dtype=torch.float32)
+         * torch.tensor(LOG2E, dtype=torch.float32))
+    pad = -lk % TILE
     k = torch.cat([k, k.new_zeros(k.shape[:-2] + (pad, dh))], -2)
     v = torch.cat([v, v.new_zeros(v.shape[:-2] + (pad, dh))], -2)
     acc = torch.zeros_like(q)
-    m = torch.full(q.shape[:-1], -math.inf)
+    ref = torch.full(q.shape[:-1], -math.inf)
     s_sum = torch.zeros(q.shape[:-1])
-    for k0 in range(0, lk, tile):
-        nk = min(tile, lk - k0)
-        for j0 in range(0, nk, sub):
-            kk = k[..., k0 + j0:k0 + j0 + sub, :]
-            vv = v[..., k0 + j0:k0 + j0 + sub, :]
-            s = q @ kk.transpose(-1, -2)
-            valid = torch.arange(sub) < nk - j0
-            mx = torch.maximum(m, s.masked_fill(~valid, -math.inf).amax(-1))
-            alpha = torch.exp((m - mx) * scale)
-            p = torch.where(valid, torch.exp((s - mx[..., None]) * scale),
-                            torch.zeros(()))
-            s_sum = s_sum * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + p @ vv
-            m = mx
+    rows = -lq % WARP_ROWS
+    for k0 in range(0, lk, TILE):
+        s = q @ k[..., k0:k0 + TILE, :].transpose(-1, -2)
+        s = s.masked_fill(torch.arange(TILE) >= lk - k0, -math.inf)
+        mx = s.amax(-1)
+        need = fma32(mx, c, -ref) > SLACK
+        warp = torch.nn.functional.pad(need, (0, rows)).unflatten(
+            -1, (-1, WARP_ROWS)).any(-1)
+        need = warp.repeat_interleave(WARP_ROWS, -1)[..., :lq]
+        nxt = torch.where(need, torch.maximum(ref, mx * c), ref)
+        alpha = torch.where(need, torch.exp2(ref - nxt), torch.ones(()))
+        s_sum, acc, ref = s_sum * alpha, acc * alpha[..., None], nxt
+        p = torch.exp2(fma32(s, c, -ref[..., None]))
+        s_sum = s_sum + p.sum(-1)
+        acc = acc + p @ v[..., k0:k0 + TILE, :]
     return acc / s_sum[..., None]
 
 
@@ -89,6 +111,62 @@ def test_online_softmax_matches_float64(lq, lk, sharp):
     q, k, v = inputs(lq, lk, sharp)
     np.testing.assert_allclose(online_softmax(q, k, v).double(),
                                attention_f64(q, k, v), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("sharp", [False, True], ids=["flat", "sharp"])
+@pytest.mark.parametrize("lq,lk", TILE_EDGES)
+def test_plain_matches_float64_at_tile_edges(lq, lk, sharp):
+    q, k, v = inputs(lq, lk, sharp, n=1, h=4)
+    np.testing.assert_allclose(ac.attention_plain(q, k, v).double(),
+                               attention_f64(q, k, v), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("sharp", [False, True], ids=["flat", "sharp"])
+@pytest.mark.parametrize("lq,lk", TILE_EDGES)
+def test_online_softmax_matches_float64_at_tile_edges(lq, lk, sharp):
+    q, k, v = inputs(lq, lk, sharp, n=1, h=4)
+    np.testing.assert_allclose(online_softmax(q, k, v).double(),
+                               attention_f64(q, k, v), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("lq,lk", [(65, 129), (33, 193)])
+def test_online_softmax_with_logits_far_below_zero(lq, lk):
+    """Every logit near -110, so exp2 of a scaled raw score underflows to
+    0 in float32: the first tile must set each row's reference to its
+    max. Scores of magnitude ~620 carry float32 rounding of ~4e-5 (as in
+    ``attention_plain``), hence the wider tolerance here."""
+    rng = np.random.default_rng(3)
+    u = rng.normal(size=32)
+    k = u + 0.1 * rng.normal(size=(1, 4, lk, 32))
+    q = -20.0 * u + 0.1 * rng.normal(size=(1, 4, lq, 32))
+    v = rng.normal(size=(1, 4, lk, 32))
+    q, k, v = (torch.from_numpy(a.astype(np.float32)) for a in (q, k, v))
+    scaled = (q @ k.transpose(-1, -2)) * (LOG2E / math.sqrt(32))
+    assert float(torch.exp2(scaled).max()) == 0.0
+    want = attention_f64(q, k, v)
+    plain_gap = float((ac.attention_plain(q, k, v).double() - want).abs()
+                      .max())
+    got = online_softmax(q, k, v).double()
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=max(TOL, 2 * plain_gap),
+                               rtol=0)
+
+
+def test_reference_rises_mid_row_with_sharp_logits():
+    """Sharp logits make the running max jump past the slack after the
+    first tile, so the emulation exercises the rescaling; flat ones do
+    not, so their later tiles take the fast path."""
+    def raised(q, k):
+        c = (1.0 / math.sqrt(32)) * LOG2E
+        tiles = (q @ k.transpose(-1, -2)).split(TILE, -1)
+        first = tiles[0].amax(-1) * c
+        return any(bool(((t.amax(-1) * c - first) > SLACK).any())
+                   for t in tiles[1:])
+
+    q, k, _ = inputs(130, 200, True)
+    assert raised(q, k)
+    q, k, _ = inputs(130, 200, False)
+    assert not raised(q, k)
 
 
 def test_sharp_logits_pick_one_key():
@@ -200,10 +278,13 @@ def test_launch_is_counted_with_its_shape(launch_path, monkeypatch):
     out = ac.attention(q, k, v)
     assert out.shape == q.shape and out.dtype == torch.float32
     assert ac.counts() == (1, 1, 2 * 8 * 47 * 130)
-    bh, lq, lk, dh, scale = lib.args[4:9]
+    bh, lq, lk, dh, scale = lib.args[5:10]
     assert (bh, lq, lk, dh) == (16, 47, 130, 32)
     assert scale == pytest.approx(1 / math.sqrt(32))
     assert lib.args[3] == out.data_ptr()
+    # the scratch for k transposed: its own buffer
+    assert lib.args[4] not in (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               out.data_ptr())
 
 
 def test_head_width_other_than_32_raises_on_the_launch_path(launch_path):
@@ -253,3 +334,40 @@ def test_multihead_attention_routes_through_the_wrapper(monkeypatch):
     assert seen == [(torch.float32, (2, 8, 12, 32), True, (2, 8, 12, 32)),
                     (torch.float32, (2, 8, 12, 32), True, (2, 8, 20, 32)),
                     (torch.float32, (2, 8, 12, 32), True, (2, 8, 12, 32))]
+
+
+def test_ptxas_report_is_read_per_kernel():
+    """``nvcc.ptxas_usage`` (``chip_smoke.py``'s attention phase reports
+    and checks it): registers, spills and static shared memory per kernel,
+    under the kernel's own name, the most of its template instances."""
+    from evreal_tpu_torch.kernels import nvcc
+
+    # as nvcc names them: the length prefix after the namespace's hash
+    fwd = ("_ZN45_GLOBAL__N__d9317677_12_attention_cu_dcd4a74120attention_"
+           "fwd_kernelEPK6float4PKfS2_PS0_iiif")
+    fwd2 = fwd.replace("iiif", "iiiif")  # another template instance
+    tr = ("_ZN45_GLOBAL__N__d9317677_12_attention_cu_dcd4a74126attention_"
+          "transpose_kernelEPKfPfii")
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fwd}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 220 registers, used 1 barriers, 400 bytes "
+        "cmem[0]",
+        f"ptxas info    : Function properties for {fwd2}",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{tr}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {tr}",
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 26 registers, used 1 barriers, 4224 bytes smem, "
+        "376 bytes cmem[0]"])
+    assert nvcc.ptxas_usage(log) == {
+        "attention_fwd_kernel": {"registers": 220, "spill_stores": 8,
+                                 "spill_loads": 8, "stack_bytes": 0,
+                                 "smem_bytes": 0},
+        "attention_transpose_kernel": {"registers": 26, "spill_stores": 4,
+                                       "spill_loads": 12, "stack_bytes": 8,
+                                       "smem_bytes": 4224}}
+    assert nvcc.ptxas_usage("") == {}
