@@ -1378,16 +1378,18 @@ def phase_color(torch, vc, vox, root, card, device):
         if hw == COLOR_HW:
             card_runner = runners[device]
 
-    # one steady chunk under the profiler, and the merge alone
+    # one steady chunk under the profiler, and the merge alone (``run``
+    # takes the eval loop's one-lane buffers)
     dev_bufs = card_runner.upload(arrays)
-    phase_profile(torch, card_runner, dev_bufs, COLOR_CHUNK_T, "color_e2vid")
+    lane_bufs = card_runner.upload({k: v[None] for k, v in arrays.items()})
+    phase_profile(torch, card_runner, lane_bufs, COLOR_CHUNK_T, "color_e2vid")
     _, chans, gray = card_runner.reconstruct(
         card_runner.init_state(), card_runner.voxel_stage(dev_bufs))
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     merge_ms = time_ms(torch, lambda: card_runner.post(
         card_runner.merge(chans, gray)), flush)
     chunk_ms = time_ms(torch, lambda: card_runner.run(
-        card_runner.init_state(), dev_bufs, COLOR_CHUNK_T), flush,
+        card_runner.init_state(), lane_bufs, COLOR_CHUNK_T), flush,
         warmup=1, iters=5)
     result = {"phase": "color", "card": card, "runs": res,
               "kernel_at_color_launch": kernel,

@@ -1,5 +1,8 @@
-"""Lockstep batched evaluation of N same-resolution sequences
-(``evreal_tpu/harness/batched.py``).
+"""The port's eval loop: lockstep evaluation of N same-resolution
+sequences (``evreal_tpu/harness/batched.py``). Every sequence runs here:
+one sequence (a dataset with one at its resolution, ``EVREAL_BATCH_N=1``,
+``EVREAL_BATCHED=0``, a color config) is a group of one lane, with no
+mesh, and computes what the JAX package's single-sequence loop does.
 
 The recurrence forces window t to follow window t - 1 within a sequence,
 but sequences are independent, so N of them run in lockstep as the batch
@@ -34,20 +37,22 @@ to set up.
 
 Hist-eq configs equalize each running lane's clipped frames and f32
 references on the host and score the chunk's equalized (m, T) pairs in
-one device call.
+one device call. A color config's lane runs ``models/colornet.py:
+ColorRunner`` (f32, the merged BGR frames saved and not scored).
 Under ``EVREAL_RESUME`` finished lanes are skipped and the rest run as a
 smaller group; each lane makes its own videos at the end.
 
 Under a device mesh (``eval_mesh_for``: on a CUDA run every visible card
-when there are more than one; ``EVREAL_MESH=0`` turns it off) the group is padded to
-``n_pad``, a multiple of dp, and its lanes split into dp contiguous
-blocks, one per card (``ShardedRunner``): per chunk the host uploads
-each block to its card, where one voxelizer launch, the model steps, the
-post-norm, the u8 frames and the (lanes, T) scores run with that card's
-model replica. Only the real lanes' results come back, in lane order;
-the padding lanes voxelize as empty windows and are never fetched. A
-mesh group does not narrow: its blocks stay padded and dp-divisible, and
-every lane, ended ones too, runs to the longest lane's end.
+when there are more than one; ``EVREAL_MESH=0`` turns it off) a group of
+more than one lane is padded to ``n_pad``, a multiple of dp, and its
+lanes split into dp contiguous blocks, one per card (``ShardedRunner``):
+per chunk the host uploads each block to its card, where one voxelizer
+launch, the model steps, the post-norm, the u8 frames and the (lanes, T)
+scores run with that card's model replica. Only the real lanes' results
+come back, in lane order; the padding lanes voxelize as empty windows
+and are never fetched. A mesh group does not narrow: its blocks stay
+padded and dp-divisible, and every lane, ended ones too, runs to the
+longest lane's end.
 """
 
 import os
@@ -62,6 +67,7 @@ from evreal_tpu_torch.harness.runner import (
     MethodRunner,
     MetricContainment,
     abandon_on_error,
+    check_color_histeq,
     check_resume,
     count_attention,
     equalized_refs,
@@ -87,7 +93,6 @@ from evreal_tpu_torch.harness.timers import (
     UPLOAD,
     DeviceTimer,
     TimingLog,
-    span,
 )
 from evreal_tpu_torch.metrics import registry
 from evreal_tpu_torch.parallel.mesh import (
@@ -96,6 +101,7 @@ from evreal_tpu_torch.parallel.mesh import (
     make_mesh,
     pad_lanes,
 )
+from evreal_tpu_torch.utils.spans import span
 
 _EVAL_MESH = "unset"
 
@@ -234,8 +240,9 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
                                   bundle, method_config, sequences, metrics,
                                   timings=None):
     """Evaluate one method on N same-resolution sequences in lockstep,
-    sharded over the eval mesh when there is one. Returns
-    ``[(num_evaluated, mean_scores)]`` aligned with ``sequences``."""
+    sharded over the eval mesh when there is one and N > 1 (a color
+    config: one sequence). Returns ``[(num_evaluated, mean_scores)]``
+    aligned with ``sequences``."""
     specs = registry.resolve(metrics)
     done = [check_resume(eval_config, dataset_name, s, method_name, specs)
             for s in sequences]
@@ -247,25 +254,33 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
         return [d if d is not None else next(rest) for d in done]
     timings = timings if timings is not None else TimingLog()
     with span(SETUP):
+        check_color_histeq(eval_config)
+        color = eval_config.get("color", False)
         hist_eq = eval_config.get("histeq", "none")
         seqs = [s["dataset"] for s in sequences]
         n = len(seqs)
         resolution = tuple(seqs[0].sensor_resolution)
-        mesh = eval_mesh_for(bundle.device)
+        # one sequence runs alone, as the JAX package's single loop does
+        mesh = eval_mesh_for(bundle.device) if n > 1 else None
         # a dp-divisible lane count; the padding lanes are empty windows
         # whose outputs are never read
         # (evreal_tpu/harness/batched.py:353-357)
         n_pad = (pad_lanes(n, len(dp_devices(mesh))) if mesh is not None
                  else n)
-        runner = bundle.batched_runner_for(resolution, method_config,
-                                           seqs[0].num_bins, n_pad, mesh)
+        if color:
+            runner = bundle.color_runner_for(resolution, method_config,
+                                             seqs[0].num_bins)
+        else:
+            runner = bundle.batched_runner_for(resolution, method_config,
+                                               seqs[0].num_bins, n_pad, mesh)
         parts = runner.parts()
         first = parts[0][0]
         trackers = [make_tracker(eval_config, dataset_name, s, method_name,
                                  specs) for s in sequences]
-        use = usable_metrics(first, specs if any(
+        # color frames are saved and not scored
+        use = [] if color else usable_metrics(first, specs if any(
             seq.has_images for seq in seqs) else no_ref_specs(specs))
-        contain = MetricContainment("group")
+        contain = MetricContainment("group" if n > 1 else "sequence")
         eval_infer_all = eval_config.get("eval_infer_all", False)
         metas_all = [seq.windows() for seq in seqs]
         procs = [gate_windows(metas, s["start_time_s"], s["end_time_s"],

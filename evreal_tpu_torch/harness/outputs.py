@@ -21,7 +21,8 @@ import zlib
 
 import numpy as np
 
-from evreal_tpu_torch.harness.timers import PNG_WAIT, span
+from evreal_tpu_torch.harness.timers import PNG_WAIT
+from evreal_tpu_torch.utils.spans import span
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 

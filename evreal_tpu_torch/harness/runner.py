@@ -1,7 +1,9 @@
-"""Evaluation loop (``evreal_tpu/harness/runner.py``; reference
-eval.py:189-455): the single-sequence runner here, and the grouping that
-sends same-resolution sequences to the lockstep batched runner
-(``harness/batched.py``).
+"""Evaluation (``evreal_tpu/harness/runner.py``; reference
+eval.py:189-455): the runner of one (model, resolution), the pieces of the
+eval loop, and the grouping that sends each dataset's sequences, in
+same-resolution groups or one at a time, to the one eval loop
+(``harness/batched.py:eval_method_on_sequence_group``; a single sequence
+is a group of one lane, ``eval_method_on_sequence``).
 
 Per chunk of ``chunk_t`` windows:
 
@@ -73,13 +75,8 @@ import torch
 
 from evreal_tpu_torch.convert.checkpoint import load_method_checkpoint
 from evreal_tpu_torch.convert.params import from_jax_tree, load_params
-from evreal_tpu_torch.data import Sequence, pack_windows, plan_capacity
-from evreal_tpu_torch.data.packing import (
-    alloc_buffers,
-    outlier_buffers,
-    wire_dtypes,
-    wire_format,
-)
+from evreal_tpu_torch.data import Sequence
+from evreal_tpu_torch.data.packing import wire_dtypes, wire_format
 from evreal_tpu_torch.harness.config import (
     get_dataset_configs,
     get_eval_configs,
@@ -95,22 +92,12 @@ from evreal_tpu_torch.harness.tables import (
 from evreal_tpu_torch.harness.timers import (
     ATTENTION_COUNTS,
     BUNDLE,
-    FETCH,
     OPEN,
-    PACK,
     PNG_DRAIN,
-    RECORD,
-    SCORE,
-    SETUP,
-    STEP,
-    UPLOAD,
-    DeviceTimer,
     TimingLog,
-    span,
 )
 from evreal_tpu_torch.harness.video import require_ffmpeg
 from evreal_tpu_torch.kernels.attention_cuda import counts as attention_counts
-from evreal_tpu_torch.metrics import registry
 from evreal_tpu_torch.metrics.tracker import (
     EvalMetricsTracker,
     MetricTracker,
@@ -133,6 +120,7 @@ from evreal_tpu_torch.utils import (
     resolve_device,
     upload,
 )
+from evreal_tpu_torch.utils.spans import span
 
 # parsed at import, as in the JAX package (runner.py:46-50), so a malformed
 # value fails at once rather than inside the per-dataset containment
@@ -151,14 +139,6 @@ def compute_dtype():
     bf16 serving mode; anything else is float32, for reference parity."""
     name = os.environ.get("EVREAL_DTYPE", "float32")
     return torch.bfloat16 if name in ("bfloat16", "bf16") else torch.float32
-
-
-def cast_model(model, dtype):
-    """The model in the serving dtype on its own device: itself when its
-    floating parameters and buffers already are ``dtype`` (so runners
-    given one cast copy share it), else a copy rounded to ``dtype`` (round
-    to nearest even, as the JAX package's ``cast_params``)."""
-    return replica_on(model, next(model.parameters()).device, dtype)
 
 
 def voxel_precision_choice(dtype):
@@ -623,7 +603,7 @@ def usable_metrics(runner, specs):
 
 
 def make_tracker(eval_config, dataset_name, sequence, method_name, specs):
-    """The sequence's ``EvalMetricsTracker`` (single and lockstep paths)."""
+    """The sequence's ``EvalMetricsTracker``."""
     seq = sequence["dataset"]
     return EvalMetricsTracker(
         sequence_output_dir(eval_config, dataset_name, sequence["name"],
@@ -693,30 +673,11 @@ def event_dtypes(seqs):
     return wire_dtypes(wire_format(), int_coords, seqs[0].sensor_resolution)
 
 
-def reference_frames(seq, metas):
-    """The windows' reference frames, stacked: raw uint8 when the memmap
-    stores it (converted on the device by a lookup table), else f32."""
-    u8 = [seq.frame_u8(m["frame_index"]) for m in metas]
-    if all(r is not None for r in u8):
-        return np.stack(u8)
-    return np.stack([seq.frame(m["frame_index"]) for m in metas])
-
-
 def equalized_refs(seq, metas, hist_eq):
     """The windows' f32 reference frames (``Sequence.frame``), clipped and
     equalized on the host."""
     return np.stack([histogram_equalization(
         np.clip(seq.frame(m["frame_index"]), 0, 1), hist_eq) for m in metas])
-
-
-def score_on_device(runner, specs, imgs, refs, on_error):
-    """{name: numpy scores} of host images ``imgs`` (..., H, W), against
-    ``refs`` unless None, scored on the runner's device with its metric
-    functions."""
-    dev = runner.upload({"i": imgs} if refs is None
-                        else {"i": imgs, "r": refs})
-    scores = runner.metric_scores(specs, dev["i"], dev.get("r"), on_error)
-    return {k: v.cpu().numpy() for k, v in scores.items()}
 
 
 def record_window(tracker, seq, i, meta, image, scores, processed=None):
@@ -780,110 +741,14 @@ def run_chunks(n_chunks, dispatch, drain, timer):
 
 def eval_method_on_sequence(dataset_name, eval_config, method_name, bundle,
                             method_config, sequence, metrics, timings=None):
-    specs = registry.resolve(metrics)
-    done = check_resume(eval_config, dataset_name, sequence, method_name,
-                        specs)
-    if done is not None:
-        return done
-    timings = timings if timings is not None else TimingLog()
-    with span(SETUP):
-        check_color_histeq(eval_config)
-        seq = sequence["dataset"]
-        color = eval_config.get("color", False)
-        hist_eq = eval_config.get("histeq", "none")
-        if color:
-            runner = bundle.color_runner_for(seq.sensor_resolution,
-                                             method_config, seq.num_bins)
-        else:
-            runner = bundle.runner_for(seq.sensor_resolution, method_config,
-                                       seq.num_bins)
-        tracker = make_tracker(eval_config, dataset_name, sequence,
-                               method_name, specs)
-        use = [] if color else usable_metrics(
-            runner, specs if seq.has_images else no_ref_specs(specs))
-        contain = MetricContainment("sequence")
+    """One sequence, run as a lockstep group of one lane (the eval loop,
+    ``harness/batched.py:eval_method_on_sequence_group``). Returns
+    ``(num_evaluated, mean_scores)``."""
+    from evreal_tpu_torch.harness.batched import eval_method_on_sequence_group
 
-        metas_all = seq.windows()
-        proc = gate_windows(metas_all, sequence["start_time_s"],
-                            sequence["end_time_s"],
-                            eval_config.get("eval_infer_all", False))
-        chunk_t = runner.chunk_t
-        capacity = plan_capacity(metas_all[i]["event_count"] for i in proc)
-        dtypes = event_dtypes([seq])
-        pool = alloc_buffers((chunk_t,), capacity, dtypes)
-        # hist-eq: the clipped frames come to the host to be equalized (and
-        # scored against equalized references, or saved under _processed)
-        equalize = hist_eq != "none" and (
-            bool(use) or tracker.save_processed_images)
-        state = runner.init_state()
-
-    def dispatch(k):
-        nonlocal state
-        chunk = proc[k * chunk_t:(k + 1) * chunk_t]
-        valid_t = len(chunk)
-        metas = [metas_all[i] for i in chunk]
-        with span(PACK):
-            chunk_max = max(m["event_count"] for m in metas)
-            if chunk_max <= capacity:
-                cap_c, bufs, zeroed = capacity, pool, False
-            else:  # outlier chunk (rare by plan_capacity): one-off buffers
-                cap_c, bufs = outlier_buffers((chunk_t,), chunk_max, dtypes)
-                zeroed = True
-            pack_windows(seq, chunk, capacity=cap_c,
-                         out={k: v[:valid_t] for k, v in bufs.items()},
-                         out_zeroed=zeroed, metas=metas)
-            bufs["count"][valid_t:] = 0  # ragged last chunk: empty windows
-        with span(UPLOAD):
-            dev_bufs = runner.upload(bufs)
-        with span(STEP), count_attention(timings):
-            state, _, clipped = runner.run(state, dev_bufs, valid_t)
-        del dev_bufs  # back to the allocator before the scoring's buffers
-        # one lane: every window stepped is a real one
-        timings.count("lane_windows.real", valid_t)
-        timings.count("lane_windows.computed", valid_t)
-        out = {}
-        if tracker.save_images:
-            out["images"] = quantize_u8(clipped)
-        if equalize:
-            out["clipped"] = clipped
-        elif use:
-            with span(SCORE):
-                refs = (runner.upload({"r": reference_frames(seq, metas)})
-                        ["r"] if seq.has_images else None)
-                out.update(runner.metric_scores(contain.live(use), clipped,
-                                                refs, contain))
-        return (chunk, metas) + to_host(out), valid_t
-
-    def drain(entry):
-        chunk, metas, host, event = entry
-        with span(FETCH):
-            host = from_host(host, event)
-        images = host.pop("images", None)
-        clipped = host.pop("clipped", None)
-        processed = None
-        if clipped is not None:
-            with span(SCORE):
-                processed = [histogram_equalization(c, hist_eq)
-                             for c in clipped]
-                if use:
-                    host.update(score_on_device(
-                        runner, contain.live(use), np.stack(processed),
-                        equalized_refs(seq, metas, hist_eq)
-                        if seq.has_images else None, contain))
-        with span(RECORD):
-            for j, (i, meta) in enumerate(zip(chunk, metas)):
-                record_window(tracker, seq, i, meta,
-                              images[j] if images is not None else None,
-                              {k: v[j] for k, v in host.items()},
-                              processed[j] if processed is not None
-                              else None)
-
-    n_chunks = -(-len(proc) // chunk_t)
-    with abandon_on_error([tracker]), DeviceTimer(
-            timings, method_name, len(proc), runner.device) as timer:
-        run_chunks(n_chunks, dispatch, drain, timer)
-    finish_tracker(tracker, eval_config, contain.dead, timings)
-    return tracker.get_num_quan_evaluations(), tracker.get_mean_scores()
+    return eval_method_on_sequence_group(
+        dataset_name, eval_config, method_name, bundle, method_config,
+        [sequence], metrics, timings)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -953,14 +818,9 @@ def eval_method_with_config(eval_config, method_name, datasets, metrics,
                         f"dataset. ({seq_no}/{num_sequences} for this method "
                         f"and config)"))
                     seq_no += 1
-                if len(group) > 1:
-                    results = eval_method_on_sequence_group(
-                        dataset["name"], eval_config, method_name, bundle,
-                        method_config, group, metrics, timings)
-                else:
-                    results = [eval_method_on_sequence(
-                        dataset["name"], eval_config, method_name, bundle,
-                        method_config, group[0], metrics, timings)]
+                results = eval_method_on_sequence_group(
+                    dataset["name"], eval_config, method_name, bundle,
+                    method_config, group, metrics, timings)
                 accumulate_mean_scores(dataset_metrics, results)
         except Exception as e:  # noqa: BLE001 — containment, eval.py:369-375
             print(color_error(f"Exception while evaluating method "

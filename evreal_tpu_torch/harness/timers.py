@@ -9,11 +9,11 @@ steady-state ms per frame of the slowest card. Samples go to the
 ``TimingLog`` the caller passes; ``summary()`` is frame-count weighted
 across sequences.
 
-The eval loops also mark their stages with ``span(name)``
+The eval loop also marks its stages with ``span(name)``
 (``utils/spans.py``; the ``SPANS`` below): under an active
 ``torch.profiler`` session a span is a host event of that name in the
 same trace as the device's kernels; otherwise it is one shared no-op
-context. And they count, on the ``TimingLog`` (``counts``), the
+context. And it counts, on the ``TimingLog`` (``counts``), the
 lane-windows a lockstep group runs against the real ones, the lanes it
 drops as they end, the PNG writers' frames, bytes and thread seconds, and
 the attention calls of each chunk's model steps.
@@ -24,9 +24,8 @@ from collections import Counter, defaultdict
 
 import torch
 
-from evreal_tpu_torch.utils.spans import span  # noqa: F401 (the loops')
-
-# the spans of the eval loop (``harness/runner.py``, ``harness/batched.py``)
+# the spans of ``evaluate`` (``harness/runner.py``) and of its eval loop
+# (``harness/batched.py``)
 OPEN = "evreal.open"            # an eval config's datasets opened
 BUNDLE = "evreal.bundle"        # MethodBundle: .pth read, model built, cast
 SETUP = "evreal.setup"          # a group's or sequence's set-up
@@ -57,8 +56,8 @@ class TimingLog:
     the loop's work, updated on the loop's thread:
     ``lane_windows.real`` (windows evaluated) and
     ``lane_windows.computed`` (lanes run times the windows stepped, each
-    chunk: a group's running lanes, a mesh group's padded lanes; equal on
-    the single-sequence path), ``lockstep.narrowed`` (the lanes a group
+    chunk: a group's running lanes, a mesh group's padded lanes; equal for
+    a group of one lane), ``lockstep.narrowed`` (the lanes a group
     dropped at chunk boundaries once their windows ran out), ``png.frames``,
     ``png.bytes`` and ``png.busy_s`` (the PNG writers' frames, encoded
     bytes and thread seconds, added when a sequence's writer is

@@ -41,8 +41,9 @@ def to_u8(img):
 
 class ColorRunner:
     """Chunked color eval for one (model, full sensor resolution) on one
-    device. ``voxel_stage`` maps an event-buffer dict to ``(T, B, H, W)``
-    f32 voxel grids (the grayscale runner's, with its event norm);
+    device: the eval loop's runner (``harness/batched.py``) of a group of
+    one lane. ``voxel_stage`` maps an event-buffer dict to ``(T, B, H,
+    W)`` f32 voxel grids (the grayscale runner's, with its event norm);
     ``post_norm`` is the method's post-norm of the merged frames."""
 
     lanes = 1
@@ -73,6 +74,10 @@ class ColorRunner:
 
     def upload(self, arrays):
         return upload(arrays, self.device)
+
+    def parts(self):
+        """[(runner, lane block)]: the one lane on this device."""
+        return [(self, slice(0, 1))]
 
     @torch.no_grad()
     def reconstruct(self, state, vox):
@@ -116,10 +121,13 @@ class ColorRunner:
 
     @torch.no_grad()
     def run(self, state, bufs, valid_t):
-        """One chunk: voxelize all of ``bufs`` in one launch, reconstruct
-        and merge its first ``valid_t`` windows. Returns (state, merged
-        BGR uint8 (n, H, W, 3), clipped f32 frames (n, H, W, 3))."""
-        vox = self.voxel_stage(bufs)
+        """One chunk of the one lane that ``bufs`` holds (``count`` is (1,
+        T)): voxelize its T windows in one launch, reconstruct and merge
+        the first ``valid_t``. Returns (state, merged BGR uint8 (1,
+        valid_t, H, W, 3), clipped f32 frames (1, valid_t, H, W, 3)). A
+        color group is always one lane (``runner.sequence_groups``), which
+        never narrows, so the loop never cuts the dict state."""
+        vox = self.voxel_stage({k: v[0] for k, v in bufs.items()})
         state, channels, gray = self.reconstruct(state, vox[:valid_t])
         merged = self.merge(channels, gray)
-        return state, merged, self.post(merged)
+        return state, merged[None], self.post(merged)[None]

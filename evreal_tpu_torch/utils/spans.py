@@ -1,5 +1,5 @@
 """``span(name)``: a named host event over a ``with`` block while a
-``torch.profiler`` session records, for the eval loops
+``torch.profiler`` session records, for the eval loop
 (``harness/timers.py:SPANS``) and the models that mark the parts of their
 step (``models/etnet.py:SPANS``). It lives below both, so a model needs
 nothing of the harness to mark itself."""

@@ -142,8 +142,9 @@ SINGLE_CASES = (
 @pytest.mark.parametrize("method,group,histeq", SINGLE_CASES)
 def test_batched_matches_single(inputs, group_dirs, tmp_path, monkeypatch,
                                 chunk_t, method, group, histeq):
-    """The group's rows byte-equal to each lane run alone: two lanes of
-    different lengths, or four that end in different chunks (one
+    """The group's rows byte-equal to each lane run alone (a group of one
+    lane: a lane's rows do not depend on the group around it): two lanes
+    of different lengths, or four that end in different chunks (one
     mid-chunk, one without reference frames), so that the group narrows
     to its running lanes three times; hist-eq too."""
     cfg = inputs["method_configs"][method]

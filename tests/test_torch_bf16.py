@@ -28,6 +28,7 @@ from evreal_tpu_torch.harness import runner as trunner
 from evreal_tpu_torch.models import build_from_meta
 from evreal_tpu_torch.models.init import init_e2vid, init_firenet
 from evreal_tpu_torch.ops import voxelize as tvox
+from evreal_tpu_torch.parallel.mesh import replica_on
 
 torch.set_num_threads(1)
 
@@ -166,8 +167,8 @@ def test_bf16_weights_bit_equal_cast_params(method):
     tree = make()
     model = build_from_meta(meta)
     model.load_state_dict(from_jax_tree(tree), strict=True)
-    got = trunner.cast_model(model, torch.bfloat16).state_dict()
-    assert trunner.cast_model(model, torch.float32) is model
+    got = replica_on(model, "cpu", torch.bfloat16).state_dict()
+    assert replica_on(model, "cpu", torch.float32) is model
     cast = jrunner.cast_params(tree, jnp.bfloat16)
     # the same layout transform on the bf16 bits
     bits = from_jax_tree({k: np.asarray(v).view(np.uint16)

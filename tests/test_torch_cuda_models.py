@@ -13,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from evreal_tpu_torch.harness.runner import cast_model
 from evreal_tpu_torch.models import build_model
 from evreal_tpu_torch.ops.pad import CropParams
+from evreal_tpu_torch.parallel.mesh import replica_on
 from evreal_tpu_torch.utils import f32_parity
 
 H, W, STEPS = 37, 53, 4
@@ -59,7 +59,7 @@ def model_and_inputs(cls):
 
 
 def rollout(model, vox, crop, device, dtype=torch.float32):
-    model = cast_model(model, dtype).to(device)
+    model = replica_on(model, device, dtype)
     ph, pw = crop.padded_shape
     state = model.init_state(1, ph, pw, device=device, dtype=dtype)
     outs = []

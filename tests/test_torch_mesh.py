@@ -260,6 +260,41 @@ def test_cpu_runs_stay_on_the_cpu_beside_several_cards(inputs, tmp_path,
         == (4, 32, 48)
 
 
+def test_single_sequence_runs_without_the_mesh(inputs, tmp_path,
+                                               monkeypatch, chunk_t):
+    """One sequence is a group of one lane with no mesh: on a 2-entry mesh
+    ``eval_method_on_sequence`` builds one plain one-lane
+    ``BatchedRunner`` (no ``ShardedRunner``, no padding lane) and writes
+    the rows it writes under ``EVREAL_MESH=0``."""
+    cfg = inputs["method_configs"]["FireNet+"]
+    made = []
+    real_make = trunner.MethodBundle.batched_runner_for
+
+    def record(self, *args):
+        made.append(real_make(self, *args))
+        return made[-1]
+
+    monkeypatch.setattr(trunner.MethodBundle, "batched_runner_for", record)
+    monkeypatch.setenv("EVREAL_MESH", "0")
+    out = {}
+    for label, mesh in (("unsharded", "unset"), ("sharded", cpu_mesh(2))):
+        monkeypatch.setattr(tbatched, "_EVAL_MESH", mesh)
+        d = tmp_path / label
+        d.mkdir()
+        monkeypatch.chdir(d)
+        out[label] = trunner.eval_method_on_sequence(
+            "SYNS", EVAL_CONFIG, "FireNet+",
+            trunner.MethodBundle("FireNet+", cfg, "cpu"), cfg,
+            sequences(Sequence, inputs["seq_dirs"])[0], ["mse", "ssim"])
+    assert tbatched.get_eval_mesh() is not None
+    assert [type(r) for r in made] == [tbatched.BatchedRunner] * 2
+    assert [r.lanes for r in made] == [1, 1]
+    assert out["sharded"] == out["unsharded"]
+    assert_same_as_unsharded(tmp_path, [out["unsharded"]], [out["sharded"]],
+                             "FireNet+", 1,
+                             ("mse", "ssim", "timestamps", "event_rate"))
+
+
 # ---------------------------------------------------------------------------
 # sharded lockstep eval
 # ---------------------------------------------------------------------------
@@ -552,9 +587,9 @@ def test_histeq_group_sharded(inputs, tmp_path, monkeypatch, chunk_t, mode):
 def test_resume_under_a_mesh(inputs, three_dirs, tmp_path, monkeypatch,
                              chunk_t, capsys):
     """``EVREAL_RESUME`` in a sharded group: finished lanes are skipped
-    and the rest run as a smaller group, padded again to the mesh's dp;
-    the rerun lane agrees with the first run on the sharded contract
-    (its shard's batch size changed): means within 1e-5, MSE rows,
+    and the rest run as a smaller group (here one lane, which runs
+    without the mesh); the rerun lane agrees with the first run on the
+    sharded contract (its batch size changed): means within 1e-5, MSE rows,
     timestamps and event rates byte for byte, SSIM rows within 1e-5."""
     cfg = inputs["method_configs"]["FireNet+"]
     first = run_group(tmp_path, monkeypatch, "sharded", cfg,

@@ -29,10 +29,9 @@ from evreal_tpu_torch.harness.timers import (
     STEP,
     UPLOAD,
     TimingLog,
-    span,
 )
-
 from evreal_tpu_torch.utils import spans
+from evreal_tpu_torch.utils.spans import span
 
 from .test_torch_eval import make_sequence, write_inputs
 
