@@ -32,8 +32,8 @@ recurrent state is cut to the lanes left (``narrow_lanes``), and
 windows past a lane's end in a ragged chunk voxelize as empty windows
 (``count`` is cleared first) and their outputs are never read. The
 JAX package runs every lane to the end, as a new batch shape means a
-new XLA compile there; in eager PyTorch a narrower batch costs nothing
-to set up.
+new XLA compile there; in eager PyTorch a narrower batch costs only
+cuDNN's algorithm search, once a process (``conv.searches``).
 
 Hist-eq configs equalize each running lane's clipped frames and f32
 references on the host and score the chunk's equalized (m, T) pairs in
@@ -69,7 +69,7 @@ from evreal_tpu_torch.harness.runner import (
     abandon_on_error,
     check_color_histeq,
     check_resume,
-    count_attention,
+    count_step,
     equalized_refs,
     event_dtypes,
     finish_tracker,
@@ -381,7 +381,7 @@ def eval_method_on_sequence_group(dataset_name, eval_config, method_name,
                                  out_zeroed=zeroed)
         with span(UPLOAD):
             parts_bufs = upload_parts(runner, bufs)
-        with span(STEP), count_attention(timings):
+        with span(STEP), count_step(timings):
             clipped_parts = run_parts(runner, states, parts_bufs, valid_t)
         del parts_bufs  # back to the allocator before the scoring's buffers
         real_windows = sum(len(idxs) for idxs in chunk_idxs)

@@ -90,10 +90,10 @@ from evreal_tpu_torch.harness.tables import (
     print_scores,
 )
 from evreal_tpu_torch.harness.timers import (
-    ATTENTION_COUNTS,
     BUNDLE,
     OPEN,
     PNG_DRAIN,
+    STEP_COUNTS,
     TimingLog,
 )
 from evreal_tpu_torch.harness.video import require_ffmpeg
@@ -116,6 +116,7 @@ from evreal_tpu_torch.ops.voxelize import voxelize_windows
 from evreal_tpu_torch.parallel.mesh import canonical_device, replica_on
 from evreal_tpu_torch.utils import (
     U8_LUT,
+    cudnn_benchmark,
     matmul_precision_ctx,
     resolve_device,
     upload,
@@ -185,6 +186,22 @@ def quantize_u8(clipped):
     return torch.round(clipped * 255).to(torch.uint8)
 
 
+# the ``rollout_key`` of every rollout so far in this process: a rollout
+# at a new one pays cuDNN's algorithm search, whose picks cuDNN keeps for
+# the process (``conv.searches`` counts them)
+ROLLOUT_KEYS = set()
+
+
+def rollout_key(model, vox):
+    """What sets the convolutions' shapes in the model steps over ``vox``
+    (N, n, B, H, W): the model's class and parameter shapes, a step
+    input's shape (N, B, H, W), dtype and device."""
+    return (type(model).__name__,
+            tuple(tuple(p.shape) for p in model.parameters()),
+            (vox.shape[0],) + tuple(vox.shape[2:]), vox.dtype, vox.device)
+
+
+
 class MethodRunner:
     """Chunked eval pipeline for one (model, sensor resolution) on one
     device, over ``lanes`` sequences at once (1 here; the lockstep
@@ -223,9 +240,12 @@ class MethodRunner:
     def rollout(self, state, vox):
         """Run the model over ``vox`` (N, n, B, H, W), window by window,
         all lanes in one step. Returns (state, images (N, n, H, W) in f32,
-        cropped, before post-norm)."""
-        with matmul_precision_ctx(self.dtype):
+        cropped, before post-norm). cuDNN picks each convolution's
+        algorithm by measurement (``cudnn_benchmark``), searching at the
+        first step of a shape new to the process (``ROLLOUT_KEYS``)."""
+        with matmul_precision_ctx(self.dtype), cudnn_benchmark():
             vox = self.crop.pad(vox)
+            ROLLOUT_KEYS.add(rollout_key(self.model, vox))
             imgs = []
             for i in range(vox.shape[1]):
                 out, state = self.model(vox[:, i], state)
@@ -653,16 +673,19 @@ def finish_tracker(tracker, eval_config, dropped, timings=None):
 
 
 @contextlib.contextmanager
-def count_attention(timings):
-    """Add to ``timings`` the attention wrapper's counts
-    (``kernels/attention_cuda.py:counts()``) made inside the ``with``
-    block, a chunk's step: every call, those that launched the fused
-    kernel, and the products N * heads * Lq * Lk."""
-    before = attention_counts()
+def count_step(timings):
+    """Add to ``timings`` what the ``with`` block, a chunk's step, made of
+    the attention wrapper's counts (``kernels/attention_cuda.py:
+    counts()``: every call, those that launched the fused kernel, and the
+    products N * heads * Lq * Lk) and the rollouts at a new
+    ``rollout_key`` (``conv.searches``)."""
+    def now():
+        return attention_counts() + (len(ROLLOUT_KEYS),)
+
+    before = now()
     yield
-    for name, now, then in zip(ATTENTION_COUNTS, attention_counts(),
-                               before):
-        timings.count(name, now - then)
+    for name, after, then in zip(STEP_COUNTS, now(), before):
+        timings.count(name, after - then)
 
 
 def event_dtypes(seqs):

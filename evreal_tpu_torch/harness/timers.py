@@ -16,7 +16,7 @@ same trace as the device's kernels; otherwise it is one shared no-op
 context. And it counts, on the ``TimingLog`` (``counts``), the
 lane-windows a lockstep group runs against the real ones, the lanes it
 drops as they end, the PNG writers' frames, bytes and thread seconds, and
-the attention calls of each chunk's model steps.
+the attention calls and cuDNN searches of each chunk's model steps.
 """
 
 import time
@@ -40,9 +40,12 @@ PNG_DRAIN = "evreal.png.drain"  # a sequence's writer joined, files closed
 SPANS = (OPEN, BUNDLE, SETUP, PACK, UPLOAD, STEP, SCORE, FETCH, RECORD,
          PNG_WAIT, PNG_DRAIN)
 # the attention wrapper's counts (``kernels/attention_cuda.py:counts``),
-# added a chunk at a time (``harness/runner.py:count_attention``)
+# added a chunk at a time (``harness/runner.py:count_step``)
 ATTENTION_COUNTS = ("attention.calls", "attention.kernel_calls",
                     "attention.products")
+# a chunk's step counts (``harness/runner.py:count_step``): the attention
+# wrapper's, and the rollouts that paid cuDNN's algorithm search
+STEP_COUNTS = ATTENTION_COUNTS + ("conv.searches",)
 
 
 def fence(device):
@@ -61,10 +64,12 @@ class TimingLog:
     dropped at chunk boundaries once their windows ran out), ``png.frames``,
     ``png.bytes`` and ``png.busy_s`` (the PNG writers' frames, encoded
     bytes and thread seconds, added when a sequence's writer is
-    joined), and the ``ATTENTION_COUNTS``: ``attention.calls``,
-    ``attention.kernel_calls`` (those that launched the fused kernel) and
-    ``attention.products`` (the sum of N * heads * Lq * Lk), added a chunk
-    at a time."""
+    joined), and the ``STEP_COUNTS``: ``attention.calls``,
+    ``attention.kernel_calls`` (those that launched the fused kernel),
+    ``attention.products`` (the sum of N * heads * Lq * Lk) and
+    ``conv.searches`` (the chunks whose model steps met a shape new to the
+    process, each paying cuDNN's algorithm search: 0 once every shape has
+    run), added a chunk at a time."""
 
     def __init__(self):
         self.samples = defaultdict(list)
@@ -102,6 +107,9 @@ class TimingLog:
             lines.append(f"attention: {calls} calls, {fused} fused "
                          f"({100.0 * fused / calls:.1f}%), {products} "
                          f"products")
+        if "conv.searches" in self.counts:
+            lines.append(f"conv searches: {self.counts['conv.searches']} "
+                         f"chunks at a step shape new to the process")
         return lines
 
 

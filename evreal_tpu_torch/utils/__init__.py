@@ -68,6 +68,33 @@ def allow_tf32(enabled):
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+# the candidates cuDNN's search times at a new shape, in its heuristic's
+# order: at ET-Net's and E2VID's shapes the first 3 hold an algorithm
+# within 4% of the fastest that torch's default of 10 finds, for a
+# seventh of the search time
+CONV_SEARCH_LIMIT = 3
+
+
+@contextlib.contextmanager
+def cudnn_benchmark():
+    """cuDNN's benchmark mode on for the duration: each convolution runs
+    the fastest of the ``CONV_SEARCH_LIMIT`` algorithms cuDNN times at its
+    first call with those shapes, stride, dtype and layout (a search
+    cuDNN keeps for the process), in place of its heuristic's pick, which
+    sends some f32 stride-1 convolutions to an FFT. cuDNN keeps one plan
+    a shape whatever the flag, so a shape first run outside the context
+    keeps the heuristic's pick inside it too. The precision stays what
+    the TF32 flags say. The flags (process-global) are restored on exit,
+    an exception's too, so a nested context leaves the outer one's."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.benchmark_limit)
+    cudnn.benchmark, cudnn.benchmark_limit = True, CONV_SEARCH_LIMIT
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit = saved
+
+
 def f32_parity():
     """Full-f32 convolutions and matmuls (TF32 off) for the duration — the
     counterpart of the JAX runner's HIGHEST matmul precision. cuDNN

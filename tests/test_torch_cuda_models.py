@@ -1,6 +1,7 @@
 """Every model class of the port on the card against the CPU: 4-step
 recurrent rollouts at a padded odd sensor size, f32 with TF32 off, within
-1e-4; and one bf16 step whose state stays bf16 (SPADE's flag bool). Then
+1e-4 (E2VID's and ET-Net's through ``MethodRunner.rollout`` too, with
+cuDNN's algorithm search); and one bf16 step whose state stays bf16 (SPADE's flag bool). Then
 LPIPS (AlexNet widths) and MANIQA (small widths, an upscaled odd frame) on
 the card against the CPU under ``f32_parity``, within 1e-4. These
 tests need an NVIDIA GPU and skip without one; the file imports nothing of
@@ -79,6 +80,35 @@ def test_card_matches_cpu(cuda_device, cls):
     for t, (g, w) in enumerate(zip(got, want)):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=0,
                                    msg=f"{cls} step {t}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", ["E2VIDRecurrent", "EITR"])
+@pytest.mark.parametrize("before", [False, True])
+def test_runner_rollout_searched_matches_cpu(cuda_device, cls, before):
+    """``MethodRunner.rollout`` on the card, each convolution's algorithm
+    picked by cuDNN's search (``cudnn_benchmark``), against the CPU's
+    rollout, cropped, within 1e-4; cuDNN's flags read as they did before
+    the call."""
+    from evreal_tpu_torch.harness.runner import MethodRunner
+
+    model, vox, crop = model_and_inputs(cls)
+    want, _ = rollout(model, vox, crop, torch.device("cpu"))
+    want = crop.crop(torch.stack([w[:, 0] for w in want], 1))
+    runner = MethodRunner(model, event_norm=False, post_norm="none",
+                          height=H, width=W, num_bins=5, device=cuda_device)
+    raw = torch.stack([crop.crop(v) for v in vox], 1).to(cuda_device)
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.benchmark_limit)
+    cudnn.benchmark = before
+    try:
+        _, got = runner.rollout(runner.init_state(), raw)
+        assert (cudnn.benchmark, cudnn.benchmark_limit) == (before,
+                                                             saved[1])
+    finally:
+        cudnn.benchmark, cudnn.benchmark_limit = saved
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0,
+                               msg=cls)
 
 
 @pytest.mark.cuda

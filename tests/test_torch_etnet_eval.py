@@ -190,7 +190,7 @@ def test_other_methods_count_no_attention(tmp_path):
     """A model without attention adds the three counters as zeros, and
     ``summary()`` prints no attention line."""
     log = TimingLog()
-    with trunner.count_attention(log):
+    with trunner.count_step(log):
         pass
     assert [log.counts[n] for n in ATTENTION_COUNTS] == [0, 0, 0]
     assert not any(line.startswith("attention") for line in log.summary())

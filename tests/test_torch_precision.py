@@ -16,6 +16,7 @@ import io
 import json
 import os
 import sys
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -24,7 +25,13 @@ import torch
 
 from evreal_tpu.harness.runner import matmul_precision_ctx as jax_ctx
 from evreal_tpu_torch.harness import runner as trunner
-from evreal_tpu_torch.utils import f32_parity, matmul_precision_ctx
+from evreal_tpu_torch.utils import (
+    CONV_SEARCH_LIMIT,
+    allow_tf32,
+    cudnn_benchmark,
+    f32_parity,
+    matmul_precision_ctx,
+)
 
 from .test_torch_native_packer import META
 
@@ -127,6 +134,88 @@ def test_model_stage_runs_under_the_knob(monkeypatch, restore_flags):
         runner.reconstruct(runner.init_state(), vox)
         assert seen == [want, want]
         assert flags() == before
+
+
+@pytest.fixture
+def restore_cudnn():
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.benchmark_limit, cudnn.deterministic)
+    yield
+    cudnn.benchmark, cudnn.benchmark_limit, cudnn.deterministic = saved
+
+
+def search():
+    return (torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.benchmark_limit)
+
+
+@pytest.mark.parametrize("before", [(False, 10), (True, 0)])
+def test_cudnn_benchmark_only_inside_and_restored(restore_flags,
+                                                  restore_cudnn, before):
+    """``cudnn_benchmark`` turns cuDNN's benchmark mode on inside, with
+    ``CONV_SEARCH_LIMIT`` candidates, and restores both on exit, an
+    exception's exit and a nested context's too; the TF32 flags stay as
+    they were, on or off."""
+    cudnn = torch.backends.cudnn
+    cudnn.benchmark, cudnn.benchmark_limit = before
+    inside = (True, CONV_SEARCH_LIMIT)
+    for tf32 in (False, True):
+        with allow_tf32(tf32):
+            with cudnn_benchmark():
+                assert search() == inside and flags() == (tf32, tf32)
+                with cudnn_benchmark():
+                    assert search() == inside
+                assert search() == inside and flags() == (tf32, tf32)
+            assert search() == before and flags() == (tf32, tf32)
+    with pytest.raises(RuntimeError, match="inside"):
+        with cudnn_benchmark():
+            raise RuntimeError("inside")
+    assert search() == before
+
+
+def test_training_keeps_deterministic_cudnn_without_search(restore_cudnn):
+    """``train.training_precision`` runs deterministic cuDNN with no
+    search, inside an eval's ``cudnn_benchmark`` too, and gives the outer
+    settings back."""
+    from evreal_tpu_torch import train
+
+    cudnn = torch.backends.cudnn
+    cudnn.benchmark, cudnn.deterministic = False, False
+    with train.training_precision():
+        assert cudnn.deterministic and not cudnn.benchmark
+    with cudnn_benchmark():
+        with train.training_precision():
+            assert cudnn.deterministic and not cudnn.benchmark
+        assert cudnn.benchmark and not cudnn.deterministic
+    assert (cudnn.benchmark, cudnn.deterministic) == (False, False)
+
+
+def test_model_stage_searches_conv_algorithms(restore_cudnn):
+    """The runner's model stage runs its steps in cuDNN's benchmark mode,
+    the metrics outside it, and leaves the flag as it was."""
+    from evreal_tpu_torch.models import build_model
+
+    model = build_model(META["class"], META["kwargs"])
+    runner = trunner.MethodRunner(model, event_norm=True, post_norm="robust",
+                                  height=24, width=32, num_bins=5,
+                                  device="cpu", chunk_t=2)
+    seen = []
+    runner.model.register_forward_hook(
+        lambda *_: seen.append(torch.backends.cudnn.benchmark))
+    torch.backends.cudnn.benchmark = False
+    imgs = runner.reconstruct(runner.init_state(), torch.rand(2, 5, 24,
+                                                               32))[1]
+    assert seen == [True, True]
+    assert not torch.backends.cudnn.benchmark
+
+    def score(frames):
+        seen.append(torch.backends.cudnn.benchmark)
+        return frames.mean((-2, -1))
+
+    probe = types.SimpleNamespace(name="probe", no_ref=True, host=False,
+                                  serial=False, score=score)
+    runner.metric_scores([probe], runner.post(imgs)[1])
+    assert seen == [True, True, False]
 
 
 # ---------------------------------------------------------------------------

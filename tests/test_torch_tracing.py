@@ -204,3 +204,60 @@ def test_single_path_counts_every_window_real(traced, tmp_path,
     assert log.counts["lane_windows.real"] == written
     assert log.counts["lane_windows.computed"] == written
     assert log.counts["png.frames"] == len(list(out.glob("frame_*.png")))
+
+
+def test_conv_searches_count_new_step_shapes(monkeypatch):
+    """``conv.searches``: a chunk whose model steps meet a step shape new
+    to the process counts once; the shape again, at any window count or
+    from another runner of the same widths, not at all; other widths are
+    a new shape."""
+    from evreal_tpu_torch.models import build_model
+
+    monkeypatch.setattr(trunner, "ROLLOUT_KEYS", set())
+
+    def runner(base):
+        return trunner.MethodRunner(
+            build_model("FireNet", {"base_num_channels": base}),
+            event_norm=False, post_norm="none", height=20, width=28,
+            num_bins=5, device="cpu")
+
+    log = TimingLog()
+    got = []
+    for r, lanes, windows in ((runner(4), 2, 3), (runner(4), 2, 1),
+                              (runner(4), 1, 2), (runner(4), 2, 2),
+                              (runner(6), 2, 2)):
+        state = r.model.init_state(lanes, *r.crop.padded_shape,
+                                   device="cpu")
+        before = log.counts["conv.searches"]
+        with trunner.count_step(log):
+            r.rollout(state, torch.rand(lanes, windows, 5, 20, 28))
+        got.append(log.counts["conv.searches"] - before)
+    assert got == [1, 0, 1, 0, 1]
+    assert len(trunner.ROLLOUT_KEYS) == 3
+
+
+def test_conv_searches_zero_on_a_second_evaluate(traced, tmp_path,
+                                                 monkeypatch):
+    """Two identical ``evaluate`` calls: the first searches once at each
+    number of running lanes the narrowing group steps, the second not at
+    all, and ``summary()`` says so."""
+    import shutil
+
+    for d in ("config", "data", "pretrained"):
+        shutil.copytree(traced["root"] / d, tmp_path / d)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(trunner, "DEFAULT_CHUNK_T", CHUNK_T)
+    monkeypatch.setattr(trunner, "ROLLOUT_KEYS", set())
+    logs = []
+    for _ in range(2):
+        logs.append(TimingLog())
+        trunner.evaluate([METHOD], ["std"], ["SYN"], ["mse"], device="cpu",
+                         timings=logs[-1])
+    rows = [len((d / "timestamps.txt").read_text().splitlines())
+            for d in lane_dirs(tmp_path).values()]
+    running = {sum(1 for r in rows if r > k * CHUNK_T)
+               for k in range(-(-max(rows) // CHUNK_T))}
+    assert len(running) > 1
+    assert [log.counts["conv.searches"] for log in logs] == [len(running), 0]
+    assert ("conv searches: 0 chunks at a step shape new to the process"
+            in logs[1].summary())
